@@ -1,0 +1,136 @@
+"""Kernel K4: brute-force Hamming 1-NN with a running top-2.
+
+Replaces ``akaze_tpu/ops/pallas_match.py:hamming_top2``.  The CUDA kernel is
+``csrc/hamming.cu``; its header says what bounds it on the card and what its
+design does about that.
+
+``hamming_top2`` is the wrapper: on CUDA tensors it launches the kernel (or
+raises), on CPU tensors it runs ``hamming_top2_plain``.  Both return, per
+query, the smallest distance to a valid train row, the second smallest
+(equal to the smallest when the minimum is not unique) and the lowest index
+reaching the minimum.  Invalid train rows never count; queries at or past
+``count1`` return (BIG, BIG, -1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..config import DESCRIPTOR_WORDS
+
+BIG = 1 << 20   # "no distance": larger than any of the 486 bits
+CHUNK = 512     # query rows per [CHUNK, N2, 16] block of the plain version
+
+
+def last_live(valid: torch.Tensor) -> torch.Tensor:
+    """[1] int32: one past the index of the last True in ``valid`` (0 if
+    none) - the scan extent of a prefix-compacted slot set."""
+    n = valid.shape[0]
+    pos = torch.arange(0, n + 1, dtype=torch.int32, device=valid.device)
+    live = torch.cat([valid.new_ones(1), valid])   # slot 0 stands for "none"
+    return torch.where(live, pos, torch.zeros_like(pos)).amax(
+        dim=0, keepdim=True)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of each 32-bit pattern held in an int64 tensor (values in
+    [0, 2^32))."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def distance_matrix(words1: torch.Tensor,
+                    words2: torch.Tensor) -> torch.Tensor:
+    """Exact [N1, N2] int64 Hamming distances of int32 word rows."""
+    a = words1.to(torch.int64) & 0xFFFFFFFF
+    b = words2.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for i in range(0, a.shape[0], CHUNK):
+        x = a[i:i + CHUNK, None, :] ^ b[None, :, :]
+        out.append(popcount32(x).sum(-1))
+    if not out:
+        return torch.zeros((0, b.shape[0]), dtype=torch.int64,
+                           device=words1.device)
+    return torch.cat(out)
+
+
+def hamming_top2_plain(words1, words2, valid2, count1, count2):
+    """The plain PyTorch version; same arguments and results as
+    ``hamming_top2``."""
+    n1, n2 = words1.shape[0], words2.shape[0]
+    dev = words1.device
+    live2 = valid2 & (torch.arange(n2, device=dev) < count2)
+    # one BIG column past the train set: a query with no valid train row
+    # finds best = BIG there and reports index -1
+    live2 = torch.cat([live2, live2.new_zeros(1)])
+    words2 = torch.cat([words2, words2.new_zeros(1, DESCRIPTOR_WORDS)])
+    best, second, idx = [], [], []
+    for i in range(0, n1, CHUNK):
+        d = distance_matrix(words1[i:i + CHUNK], words2)
+        d = torch.where(live2[None, :], d, torch.full_like(d, BIG))
+        j = torch.argmin(d, dim=1)      # the first minimum
+        b = d.gather(1, j[:, None])[:, 0]
+        best.append(b)
+        second.append(d.scatter(1, j[:, None], BIG).amin(dim=1))
+        idx.append(torch.where(b < BIG, j, torch.full_like(j, -1)))
+    best, second, idx = (
+        torch.cat(v).to(torch.int32) if v
+        else torch.zeros(0, dtype=torch.int32, device=dev)
+        for v in (best, second, idx))
+    dead = torch.arange(n1, device=dev) >= count1
+    big = torch.full_like(best, BIG)
+    return (torch.where(dead, big, best), torch.where(dead, big, second),
+            torch.where(dead, torch.full_like(idx, -1), idx))
+
+
+def _launch(words1, words2, valid2, count1, count2):
+    n1, n2 = words1.shape[0], words2.shape[0]
+    for name, t in (("words1", words1), ("words2", words2)):
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    outs = [torch.empty(n1, dtype=torch.int32, device=words1.device)
+            for _ in range(3)]
+    lib = _build.library()
+    with torch.cuda.device(words1.device):
+        err = lib.akaze_hamming_top2(
+            _build.ptr(words1), n1, _build.ptr(count1), _build.ptr(words2),
+            _build.ptr(valid2), n2, _build.ptr(count2),
+            *(_build.ptr(o) for o in outs), _build.stream_of(words1))
+    _build.check(err, "hamming_kernel")
+    hamming_top2.launches += 1
+    return tuple(outs)
+
+
+def hamming_top2(words1: torch.Tensor, words2: torch.Tensor,
+                 valid2: torch.Tensor, count1: torch.Tensor,
+                 count2: torch.Tensor):
+    """Running-top-2 Hamming matcher.
+
+    Args:
+      words1: [N1, 16] int32 query descriptor words (uint32 bit patterns).
+      words2: [N2, 16] int32 train descriptor words.
+      valid2: [N2] bool train validity.
+      count1, count2: [1] int32, one past the last live query / train row
+        (``last_live``); work scales with these extents.
+
+    Returns (best, second, index), each [N1] int32.
+    """
+    dev = words1.device
+    n1, n2 = words1.shape[0], words2.shape[0]
+    check = _build.check_tensor
+    check("words1", words1, torch.int32, (n1, DESCRIPTOR_WORDS), dev)
+    check("words2", words2, torch.int32, (n2, DESCRIPTOR_WORDS), dev)
+    check("valid2", valid2, torch.bool, (n2,), dev)
+    check("count1", count1, torch.int32, (1,), dev)
+    check("count2", count2, torch.int32, (1,), dev)
+    if dev.type == "cpu":
+        return hamming_top2_plain(words1, words2, valid2, count1, count2)
+    if dev.type == "cuda":
+        return _launch(words1, words2, valid2, count1, count2)
+    raise ValueError(f"no hamming kernel for device {dev}")
+
+
+hamming_top2.launches = 0

@@ -38,8 +38,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of every C entry point (csrc/*.cu, extern "C")
 SIGNATURES = {
-    "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _VP],
+    "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP,
+                       _VP],
     "akaze_describe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _VP, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,

@@ -55,8 +55,11 @@ class AkazeConfig:
                                     # (MAX_DIST, akazed.cu:11)
     # The fields below select kernels and sampling types of the JAX
     # package.  They are kept so that one configuration describes both
-    # packages (``config_from``); the port always samples bf16 planes and
-    # always runs its CUDA kernels on CUDA tensors, so it reads none of them.
+    # packages (``config_from``).  The port implements only the defaults of
+    # the two that change results (bf16 descriptor planes, no exact fixed
+    # sampling) and refuses other values.  The kernel selectors
+    # (``pallas_*``, ``banded_windows``) are accepted for compatibility
+    # only: the port runs its CUDA kernels on CUDA tensors whatever they say.
     bf16_sampling: bool = True
     pallas_descriptor: str = "auto"
     pallas_scale_space: str = "auto"
@@ -74,6 +77,12 @@ class AkazeConfig:
             raise ValueError("max_scale must be in [1, 5]")
         if self.noctaves < 1:
             raise ValueError("noctaves must be >= 1")
+        if not self.bf16_sampling:
+            raise ValueError("the port samples bf16 planes only: "
+                             "bf16_sampling must be True")
+        if self.fixed_exact_sampling:
+            raise ValueError("the port has no fixed-point path: "
+                             "fixed_exact_sampling must be False")
         for field in ("pallas_descriptor", "pallas_scale_space"):
             if getattr(self, field) not in ("auto", "on", "interpret",
                                             "off"):

@@ -22,6 +22,13 @@
 // memory); the full-resolution octave, where the time goes, has halos of
 // 8-10 px and 43-53 KB blocks.
 //
+// A launch's halo is capped at MAX_HALO, which keeps a block inside the
+// shared memory one block may use.  A FED chain too long for that (octaves
+// past the fourth of large images) is split by the wrapper into launches
+// that continue the chain from the previous launch's L (`L_in`, with the
+// flow recomputed from `src`/`smooth`); only the first writes Lx, Ly and
+// det, which do not depend on the chain.
+//
 // Borders are reflect-101 through a mirror index; no padded copy is made.
 // The halo holds the mirrored field, and diffusing a mirrored field evolves
 // it exactly like the reflect-indexed computation, so L, Lx and Ly equal
@@ -42,7 +49,8 @@ constexpr int TILE_X = 32;
 constexpr int TILE_Y = 32;
 constexpr int THREADS_X = 32;
 constexpr int THREADS_Y = 8;
-constexpr int MAX_TAUS = 64;
+constexpr int MAX_HALO = 32;     // ops/sublevel.py MAX_HALO
+constexpr int MAX_TAUS = MAX_HALO;
 constexpr int MAX_RADIUS = 5;
 constexpr float FAC1 = 0.09375f;   // SCHARR_FAC1
 constexpr float FAC2 = 0.3125f;    // SCHARR_FAC2
@@ -53,6 +61,7 @@ struct SublevelArgs {
   int step;            // sigma_size: stride of the derivative stencils
   int diffusivity;     // config.Diffusivity
   int first_sublevel;  // L = the smooth (base lowpass of the first sublevel)
+  int write_derivs;    // write Lx, Ly and det (the first launch of a chain)
   int smooth_outside;  // smooth given (octave start), not computed
   int ntaus;
   int radius;          // radius of the in-kernel smooth
@@ -78,6 +87,7 @@ __device__ __forceinline__ float flow_from_dif2(float d, int diffusivity) {
 __global__ void __launch_bounds__(THREADS_X * THREADS_Y)
 sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
                 const float* __restrict__ smooth_in,
+                const float* __restrict__ L_in,
                 const float* __restrict__ ikc, float* __restrict__ L,
                 float* __restrict__ det, float* __restrict__ lx,
                 float* __restrict__ ly) {
@@ -86,8 +96,8 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
   const int EW = TILE_X + 2 * halo;   // extended tile: output tile + halo
   const int EH = TILE_Y + 2 * halo;
   const int ES = EW * EH;
-  float* bufA = smem;                 // src, then FED ping; later Ly
-  float* bufB = smem + ES;            // FED pong
+  float* bufA = smem;                 // start of the chain, FED ping; later Ly
+  float* bufB = smem + ES;            // src of a continued chain; FED pong
   float* bufF = smem + 2 * ES;        // row-pass scratch, flow; later Lx
   float* bufS = smem + 3 * ES;        // smooth
 
@@ -97,15 +107,20 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
   const int ox = blockIdx.x * TILE_X;     // image origin of the output tile
   const int oy = blockIdx.y * TILE_Y;
   const size_t plane = static_cast<size_t>(a.H) * a.W;
-  const float* srcb = src + b * plane;
+  // the chain starts from src, or from L_in when it continues a chain;
+  // the smooth comes from outside or is taken of src (bufA or bufB)
+  const float* startb = (L_in ? L_in : src) + b * plane;
   const float* smb = a.smooth_outside ? smooth_in + b * plane : nullptr;
+  const float* srcb = (L_in && !smb) ? src + b * plane : nullptr;
+  const float* sbuf = srcb ? bufB : bufA;
 
   for (int ey = ty; ey < EH; ey += THREADS_Y) {
     const size_t row = static_cast<size_t>(mirror_index(oy - halo + ey, a.H)) * a.W;
     for (int ex = tx; ex < EW; ex += THREADS_X) {
       const int gx = mirror_index(ox - halo + ex, a.W);
-      bufA[ey * EW + ex] = srcb[row + gx];
+      bufA[ey * EW + ex] = startb[row + gx];
       if (smb) bufS[ey * EW + ex] = smb[row + gx];
+      if (srcb) bufB[ey * EW + ex] = srcb[row + gx];
     }
   }
   __syncthreads();
@@ -116,7 +131,7 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
     const int r = a.radius;
     for (int ey = ty; ey < EH; ey += THREADS_Y) {
       for (int ex = r + tx; ex < EW - r; ex += THREADS_X) {
-        const float* p = bufA + ey * EW + ex;
+        const float* p = sbuf + ey * EW + ex;
         float v = a.kern[0] * p[0];
         for (int i = 1; i <= r; ++i) v = v + a.kern[i] * (p[-i] + p[i]);
         bufF[ey * EW + ex] = v;
@@ -183,6 +198,7 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
           Lbuf[(y + halo) * EW + x + halo];
     }
   }
+  if (!a.write_derivs) return;
   __syncthreads();   // L is out: bufA, bufB and bufF are free
 
   const int st = a.step;
@@ -227,19 +243,21 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
 
 }  // namespace
 
-// src, smooth (or NULL), L/det/lx/ly: [B, H, W] float32 device arrays;
-// ikc: [B] float32 device array; half_taus [ntaus] and kern [radius + 1]:
-// float32 HOST arrays, copied into the launch arguments.
+// src, smooth (or NULL), L_in (or NULL), L/det/lx/ly: [B, H, W] float32
+// device arrays, L distinct from L_in; ikc: [B] float32 device array;
+// half_taus [ntaus] and kern [radius + 1]: float32 HOST arrays, copied into
+// the launch arguments.  det/lx/ly are written only when write_derivs.
 extern "C" int akaze_sublevel(const float* src, const float* smooth,
-                              const float* ikc, float* L, float* det,
-                              float* lx, float* ly, int B, int H, int W,
-                              int halo, int step, int diffusivity,
-                              int first_sublevel, int ntaus,
-                              const float* half_taus, int radius,
+                              const float* L_in, const float* ikc, float* L,
+                              float* det, float* lx, float* ly, int B, int H,
+                              int W, int halo, int step, int diffusivity,
+                              int first_sublevel, int write_derivs,
+                              int ntaus, const float* half_taus, int radius,
                               const float* kern, void* stream) {
   if (B < 1 || B > 65535 || ntaus < 0 || ntaus > MAX_TAUS || radius < 0 ||
-      radius > MAX_RADIUS || step < 1 || halo < 2 * step + radius ||
-      halo < ntaus + radius + 1 || H <= halo || W <= halo)
+      radius > MAX_RADIUS || step < 1 || halo > MAX_HALO ||
+      (write_derivs && halo < 2 * step + radius) ||
+      halo < ntaus + radius + 1 || H <= halo || W <= halo || L == L_in)
     return static_cast<int>(cudaErrorInvalidValue);
   SublevelArgs a{};
   a.B = B;
@@ -249,6 +267,7 @@ extern "C" int akaze_sublevel(const float* src, const float* smooth,
   a.step = step;
   a.diffusivity = diffusivity;
   a.first_sublevel = first_sublevel;
+  a.write_derivs = write_derivs;
   a.smooth_outside = smooth != nullptr;
   a.ntaus = ntaus;
   a.radius = radius;
@@ -264,6 +283,6 @@ extern "C" int akaze_sublevel(const float* src, const float* smooth,
   const dim3 grid((W + TILE_X - 1) / TILE_X, (H + TILE_Y - 1) / TILE_Y, B);
   const dim3 block(THREADS_X, THREADS_Y);
   sublevel_kernel<<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(
-      a, src, smooth, ikc, L, det, lx, ly);
+      a, src, smooth, L_in, ikc, L, det, lx, ly);
   return static_cast<int>(cudaGetLastError());
 }

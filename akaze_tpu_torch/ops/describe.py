@@ -42,8 +42,6 @@ class DescribeTables(NamedTuple):
     lof: torch.Tensor        # [T] f32 tap column offsets l
     kof: torch.Tensor        # [T] f32 tap row offsets k
     cells: torch.Tensor      # [T, 3] int32 cell of the tap per grid, or -1
-    members: torch.Tensor    # [29, M] int64 taps of each cell, ascending,
-    #                          padded with T (a zero tap)
 
 
 @lru_cache(maxsize=None)
@@ -54,18 +52,23 @@ def describe_tables(patsize: int, device) -> DescribeTables:
     for grid, (lo, hi) in enumerate(((0, 4), (4, 13), (13, NCELLS))):
         t, c = np.nonzero(M[:, lo:hi])
         cells[t, grid] = c + lo
-    lists = [np.nonzero(M[:, c])[0] for c in range(NCELLS)]
-    width = max(len(m) for m in lists)
-    members = np.full((NCELLS, width), ntaps, np.int64)
-    for c, m in enumerate(lists):
-        members[c, :len(m)] = m
     dev = torch.device(device)
     return DescribeTables(
         orient_w=torch.as_tensor(_orient_grid().reshape(-1), device=dev),
         lof=torch.as_tensor(l.astype(np.float32), device=dev),
         kof=torch.as_tensor(k.astype(np.float32), device=dev),
-        cells=torch.as_tensor(cells, device=dev),
-        members=torch.as_tensor(members, device=dev))
+        cells=torch.as_tensor(cells, device=dev))
+
+
+def cell_members(cells: torch.Tensor) -> torch.Tensor:
+    """[29, M] int64 taps of each cell, ascending (the order in which the
+    kernel adds them), padded with T (the index of a zero tap)."""
+    ntaps = cells.shape[0]
+    cell_ids = torch.arange(NCELLS, device=cells.device)
+    hit = (cells[:, :, None] == cell_ids).any(1).T          # [29, T]
+    taps = torch.arange(ntaps, device=cells.device).expand(NCELLS, ntaps)
+    members = torch.where(hit, taps, ntaps).sort(dim=1).values
+    return members[:, :int(hit.sum(1).max())]
 
 
 def atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +156,7 @@ def describe_plain(iparams, fparams, planes, tables: DescribeTables):
           + 0.5).to(torch.int64)
     taps = torch.stack([sample(pl, ys, xs) for pl in planes], dim=-1)
     taps = torch.cat([taps, torch.zeros_like(taps[:, :1])], dim=1)
-    grouped = taps[:, tables.members]            # [N, 29, M, 3]
+    grouped = taps[:, cell_members(tables.cells)]    # [N, 29, M, 3]
     acc = grouped[:, :, 0]
     for j in range(1, grouped.shape[2]):
         acc = acc + grouped[:, :, j]

@@ -24,6 +24,10 @@ from .conv import f32_taps, gauss_half_kernel, sep_conv2d
 from .diffusion import conductivity_ikc, half_tau, nld_step
 from .scharr import hessian_determinant, scaled_derivatives
 
+# Largest halo of one launch (csrc/sublevel.cu MAX_HALO): four 96x96 f32
+# buffers, 147 KB of the 227 KB of shared memory one block may use.
+MAX_HALO = 32
+
 
 def halo_for(step: int, n_taus: int, smooth_radius: int = 2) -> int:
     """Stencil reach of one fused sublevel (``_halo_for`` of the JAX
@@ -38,9 +42,30 @@ def fused_supported(h: int, w: int, taus, step: int,
                     smooth_radius: int = 2) -> bool:
     """Whether the kernel can run this plane: each reflect halo must be a
     single mirror, so both sides must exceed the halo.  Smaller planes take
-    the op path, as they do in the JAX package."""
+    the op path, as they do in the JAX package.  The halo is the whole
+    sublevel's reach, as there, even where ``chain_launches`` splits the
+    chain into launches of smaller halo."""
     halo = halo_for(step, len(taus), smooth_radius)
     return h > halo + 1 and w > halo + 1
+
+
+def chain_launches(taus, step: int, smooth_radius: int = 2):
+    """The FED chain split into the K1 launches that run it, as
+    (taus, halo) per launch: each launch's halo is at most ``MAX_HALO``.
+    The first launch also takes the derivatives; the others continue the
+    chain from the previous launch's L.  Up to 29 steps (every sublevel of
+    four octaves of a 960x1280 image) take one launch; longer chains are
+    split into launches of near-equal length."""
+    if 2 * step + smooth_radius > MAX_HALO:
+        raise ValueError(f"derivative step {step} needs a halo over "
+                         f"{MAX_HALO}")
+    taus = tuple(taus)
+    most = MAX_HALO - smooth_radius - 1         # steps one launch can take
+    size = -(-len(taus) // -(-len(taus) // most)) if taus else 1
+    chunks = [taus[i:i + size] for i in range(0, len(taus), size)] or [()]
+    return [(c, halo_for(step, len(c), smooth_radius) if i == 0
+             else len(c) + smooth_radius + 1)
+            for i, c in enumerate(chunks)]
 
 
 def sublevel_plain(src, ikc, taus, step: int, smooth=None,
@@ -67,25 +92,30 @@ def sublevel_plain(src, ikc, taus, step: int, smooth=None,
 def _launch(src, ikc, taus, step, smooth, smooth_var, smooth_radius,
             first_sublevel, diffusivity):
     b, h, w = src.shape
-    halo = halo_for(step, len(taus), smooth_radius)
     if not fused_supported(h, w, taus, step, smooth_radius):
-        raise ValueError(f"plane {h}x{w} too small for halo {halo}; guard "
-                         f"calls with fused_supported()")
-    outs = [torch.empty_like(src) for _ in range(4)]
-    half = np.asarray([half_tau(t) for t in taus] or [0.0], np.float32)
+        raise ValueError(f"plane {h}x{w} too small for halo "
+                         f"{halo_for(step, len(taus), smooth_radius)}; "
+                         f"guard calls with fused_supported()")
+    L, det, lx, ly = (torch.empty_like(src) for _ in range(4))
     kern = np.asarray(f32_taps(gauss_half_kernel(smooth_var, smooth_radius)),
                       np.float32)
     lib = _build.library()
-    with torch.cuda.device(src.device):
-        err = lib.akaze_sublevel(
-            _build.ptr(src), _build.ptr(smooth), _build.ptr(ikc),
-            *(_build.ptr(o) for o in outs), b, h, w, halo, step,
-            int(diffusivity), int(first_sublevel), len(taus),
-            half.ctypes.data, smooth_radius, kern.ctypes.data,
-            _build.stream_of(src))
-    _build.check(err, "sublevel_kernel")
-    sublevel.launches += 1
-    return tuple(outs)
+    L_in = None
+    for i, (chunk, halo) in enumerate(chain_launches(taus, step,
+                                                     smooth_radius)):
+        if i:
+            L_in, L = L, torch.empty_like(src)
+        half = np.asarray([half_tau(t) for t in chunk] or [0.0], np.float32)
+        with torch.cuda.device(src.device):
+            err = lib.akaze_sublevel(
+                _build.ptr(src), _build.ptr(smooth), _build.ptr(L_in),
+                _build.ptr(ikc), *(_build.ptr(o) for o in (L, det, lx, ly)),
+                b, h, w, halo, step, int(diffusivity), int(first_sublevel),
+                int(i == 0), len(chunk), half.ctypes.data, smooth_radius,
+                kern.ctypes.data, _build.stream_of(src))
+        _build.check(err, "sublevel_kernel")
+        sublevel.launches += 1
+    return L, det, lx, ly
 
 
 def sublevel(src: torch.Tensor, ikc: torch.Tensor, taus: Tuple[float, ...],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``akaze_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--stock-dir DIR] [--reps N]
+    python3 chip_smoke.py [--stock-dir DIR]
 
 Phases, each of which fails the run (non-zero exit, no result line) on
 any disagreement:
@@ -21,11 +21,11 @@ any disagreement:
      read after (K1 16, K2 1, K4 1); on the synthetic pair the known shift
      must be recovered with an inlier fraction > 0.85; a small pair must
      agree with the CPU plain pipeline;
-  7. timings with CUDA events: the pair iteration (median of ``--reps``
-     after warm-up), its stages, and each kernel against its plain version.
+  7. timings with CUDA events: the pair iteration (median of 20 after
+     warm-up), its stages, and each kernel against its plain version.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
-``--stock-dir`` or ``$AKAZE_STOCK_DIR``) when given, else a seeded
+``--stock-dir``) when given, else a seeded
 synthetic 960x1280 texture A and its crop B shifted by (dy, dx) = (7, 13).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -49,6 +49,7 @@ MAX_PTS = 10000
 SHIFT = (7, 13)
 SEED = 0
 TOL = 1e-5
+REPS = 20           # timed pair iterations; the median is the metric
 
 
 def fail(msg: str) -> None:
@@ -386,7 +387,7 @@ def phase_small_reference(torch, dev):
           f"{int((cm.index >= 0).sum())} matches)")
 
 
-def phase_timing(torch, det, a, b, reps: int):
+def phase_timing(torch, det, a, b):
     from akaze_tpu_torch.descriptor import orient_describe_multi
     from akaze_tpu_torch.match import match
     from akaze_tpu_torch.pipeline import detect_batch
@@ -398,12 +399,12 @@ def phase_timing(torch, det, a, b, reps: int):
         fa, fb = det.detect_and_compute_pair(at, bt)
         return det.match(fa, fb)
 
-    pair_ms = cuda_ms(torch, pair_iteration, reps=reps, warmup=3)
+    pair_ms = cuda_ms(torch, pair_iteration, reps=REPS, warmup=3)
     plan = det.plan_for(H, W)
     images = torch.stack([at, bt])
     stages = {"detect (scale space + extrema + refine)": [],
               "describe (pyramid + K2 + bits)": [], "match (K4)": []}
-    for _ in range(reps):
+    for _ in range(REPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         kps, pp = detect_batch(images, plan)
@@ -417,7 +418,7 @@ def phase_timing(torch, det, a, b, reps: int):
         for k, (s, e) in zip(stages, zip(ev[:-1], ev[1:])):
             stages[k].append(s.elapsed_time(e))
     print(f"[time] pair iteration (detect + describe + match, 960x1280, "
-          f"max_pts={MAX_PTS}): median {pair_ms:.3f} ms of {reps}")
+          f"max_pts={MAX_PTS}): median {pair_ms:.3f} ms of {REPS}")
     for k, v in stages.items():
         print(f"[time]   {k}: median {float(np.median(v)):.3f} ms")
     return pair_ms
@@ -425,9 +426,8 @@ def phase_timing(torch, det, a, b, reps: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stock-dir", default=os.environ.get("AKAZE_STOCK_DIR"),
+    ap.add_argument("--stock-dir",
                     help="directory holding left.pgm and right.pgm")
-    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
     # the port is the checkout's own, beside this script, never an installed
@@ -462,7 +462,7 @@ def main() -> int:
     k4 = phase_k4(torch, dev)
     launches = phase_main(torch, det, a, b, shift)
     phase_small_reference(torch, dev)
-    pair_ms = phase_timing(torch, det, a, b, args.reps)
+    pair_ms = phase_timing(torch, det, a, b)
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
 
     rows = [

@@ -70,6 +70,8 @@ CASES = {
                          smooth=True),
     "next": dict(taus=(0.25, 0.2, 0.15), step=3),
     "long_chain": dict(taus=tuple(np.linspace(0.05, 0.25, 29)), step=4),
+    # too long for one launch's halo: two launches continue one chain
+    "split_chain": dict(taus=tuple(np.linspace(0.05, 0.25, 57)), step=4),
 }
 
 
@@ -89,14 +91,94 @@ def test_sublevel_kernel_matches_plain(cuda, case, diffusivity):
                       smooth=None if smooth is None else smooth.to(cuda),
                       diffusivity=diffusivity, **kw)
     torch.cuda.synchronize()
-    assert k1.sublevel.launches == before + 1
+    n = len(k1.chain_launches(taus, step, kw.get("smooth_radius", 2)))
+    assert k1.sublevel.launches == before + n
+    assert n == (2 if case == "split_chain" else 1)
+    assert_planes_close(got, want, step)
+
+
+def assert_planes_close(got, want, step, names=("L", "det", "lx", "ly")):
     m = 2 * step + 2
-    for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
-        g = g.cpu()
+    for name, g, w in zip(names, got, want):
+        g, w = g.cpu(), w.cpu()
         if name == "det":
             g, w = g[..., m:-m, m:-m], w[..., m:-m, m:-m]
         scale = max(float(w.abs().max()), 1e-6)
         assert float((g - w).abs().max()) <= TOL * scale, name
+
+
+@pytest.mark.cuda
+def test_five_octaves_of_a_large_image(cuda, monkeypatch):
+    """noctaves=5 at 1280x1920: the fifth octave's FED chains (34-57 steps)
+    exceed one launch's halo and are split.  Each of the scale space's K1
+    calls equals its plain version on the same inputs, and the pair path
+    recovers a known shift.
+
+    Lx, Ly and det are held to 1e-5 of the plane max.  So is L, except
+    where the FED chain itself is ill-conditioned in float32 (the 40-step
+    chain of octave 4, sublevel 1 moves by ~6e-4 for a 1e-7 relative change
+    of its input): there K1's L must lie no further from a float64
+    evaluation of the plain version than 4x the float32 plain version
+    does."""
+    import akaze_tpu_torch.scale_space as ss
+    h, w = 1280, 1920
+    coarse = texture((h + SHIFT[0]) // 4 + 2, (w + SHIFT[1]) // 4 + 2, seed=5)
+    big = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse)[None, None], scale_factor=4,
+        mode="bilinear", align_corners=False)[0, 0].numpy()
+    rng = np.random.default_rng(5)
+    big = np.clip(big + 0.03 * rng.standard_normal(big.shape), 0, 1)
+    a = big[:h, :w].astype(np.float32)
+    b = big[SHIFT[0]:SHIFT[0] + h, SHIFT[1]:SHIFT[1] + w].astype(np.float32)
+    det = Akaze(AkazeConfig(max_pts=10000, noctaves=5), device=cuda)
+    plan = det.plan_for(h, w)
+    assert len(plan.octaves) == 5
+    assert max(len(sp.taus) for sp in plan.octaves[4].scales) > 29
+
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return k1.sublevel(*args, **kw)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(ss, "sublevel", recording)
+        build_scale_space(torch.from_numpy(a).to(cuda), plan)
+    assert len(calls) == 20
+    split = 0
+    for (src, ikc, taus, step), kw in calls:
+        split += len(k1.chain_launches(taus, step)) > 1
+        got = k1.sublevel(src, ikc, taus, step, **kw)
+        want = k1.sublevel_plain(src, ikc, taus, step, **kw)
+        kw64 = {k: v.double() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+        exact = k1.sublevel_plain(src.double(), ikc.double(), taus, step,
+                                  **kw64)[0]
+        plain_err = float((want[0].double() - exact).abs().max())
+        got_err = float((got[0].double() - exact).abs().max())
+        scale = float(exact.abs().max())
+        assert got_err <= max(TOL * scale, 4 * plain_err), (step, len(taus))
+        assert_planes_close(got[1:], want[1:], step, ("det", "lx", "ly"))
+        if plain_err < 0.1 * TOL * scale:      # a well-conditioned chain
+            assert_planes_close(got[:1], want[:1], step, ("L",))
+    assert split == 4
+
+    before = k1.sublevel.launches
+    fa, fb = det.detect_and_compute_pair(a, b)
+    m = det.match(fa, fb)
+    torch.cuda.synchronize()
+    assert k1.sublevel.launches - before == 24     # 20 sublevels, 4 split
+    n = int(fa.count)
+    acc = m.index[:n] >= 0
+    dx = (m.match_x[:n] - fa.x[:n])[acc].cpu().numpy()
+    dy = (m.match_y[:n] - fa.y[:n])[acc].cpu().numpy()
+    assert acc.sum() > 100
+    # the upsampled texture puts keypoints off the pixel grid, so the
+    # shift is held to 0.1 px and the inliers to 1.5 px
+    assert abs(np.median(dx) + SHIFT[1]) < 0.1
+    assert abs(np.median(dy) + SHIFT[0]) < 0.1
+    inliers = (np.abs(dx + SHIFT[1]) < 1.5) & (np.abs(dy + SHIFT[0]) < 1.5)
+    assert inliers.mean() > 0.85
 
 
 @pytest.mark.cuda

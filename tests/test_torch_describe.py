@@ -1,8 +1,9 @@
 """Kernel K2 (orientation + MLDB cell sums) and the descriptor module of
 the PyTorch port against the JAX package.
 
-Both sides get the SAME keypoints and bf16 pyramid (the JAX package's,
-handed over as numpy), so this file isolates the descriptor.  The
+Both sides get the SAME keypoints and bf16 pyramid (the port's, handed
+over as numpy; test_torch_sublevel.py and test_torch_pipeline.py hold those
+to the JAX package), so this file isolates the descriptor.  The
 reference is the JAX package's XLA descriptor path, which its own tests
 hold equal to the Pallas kernel (0 flipped bits on the test image,
 tests/test_pallas_descriptor.py); the pair pipeline test holds the port
@@ -23,16 +24,16 @@ import torch
 
 from akaze_tpu import AkazeConfig as JConfig
 from akaze_tpu import descriptor as jdesc
+from akaze_tpu.detect import Keypoints as JKeypoints
 from akaze_tpu.detect import build_padded_pyramid as jpadded
-from akaze_tpu.detect import detect_keypoints as jdetect
 from akaze_tpu.ops import pallas_describe as jpd
 from akaze_tpu.plan import build_plan as jbuild_plan
-from akaze_tpu.scale_space import build_scale_space as jscale_space
+from akaze_tpu.scale_space import OctaveData as JOctaveData
 from akaze_tpu_torch import build_plan, config_from
 from akaze_tpu_torch import descriptor as tdesc
-from akaze_tpu_torch.detect import Keypoints, build_padded_pyramid
+from akaze_tpu_torch.detect import build_padded_pyramid, detect_keypoints
 from akaze_tpu_torch.ops import describe as tdescribe
-from akaze_tpu_torch.scale_space import OctaveData
+from akaze_tpu_torch.scale_space import build_scale_space
 
 torch.set_num_threads(1)
 
@@ -96,21 +97,15 @@ def test_finish_descriptors_is_the_comparison_matmul():
                                   np.asarray(want.words))
 
 
-def _to_torch_octaves(octs):
-    return [OctaveData(*(torch.from_numpy(np.array(v)) for v in o))
-            for o in octs]
-
-
-def _to_torch_kps(k):
-    f = {n: torch.from_numpy(np.array(getattr(k, n)))
-         for n in Keypoints._fields}
-    return Keypoints(**f)
+def _to_jax(nt, cls):
+    return cls(*(jnp.asarray(v.numpy()) for v in nt))
 
 
 @pytest.fixture(scope="module")
 def described(test_image):
-    """JAX's scale space, keypoints and XLA descriptors of a pair, and the
-    port's descriptors of the same keypoints and pyramid."""
+    """The port's scale space and keypoints of a pair; the JAX package's
+    XLA descriptors of those keypoints on the same pyramid, and the
+    port's."""
     a = test_image[:160, :208]
     b = np.roll(a, (5, 9), axis=(0, 1))
     jcfg = JConfig(max_pts=256, noctaves=2, pallas_descriptor="off",
@@ -119,16 +114,18 @@ def described(test_image):
     plan = build_plan(*a.shape, config_from(dataclasses.asdict(jcfg)))
     ref, kps_t, octs_t = [], [], []
     for img in (a, b):
-        octs, _ = jscale_space(jnp.asarray(img), jplan)
-        kps = jdetect(octs, jplan)
-        pp = jpadded(octs, jdesc.WSIZE, dtype=jnp.bfloat16)
-        wnd = jdesc.extract_windows(kps, pp, jplan)
-        angle = jdesc.compute_orientation(kps, wnd, jplan)
-        words = jdesc.compute_descriptors(kps, angle, wnd, jplan).words
+        octs, _ = build_scale_space(torch.from_numpy(img), plan)
+        kps = detect_keypoints(octs, plan)
+        jkps = _to_jax(kps, JKeypoints)
+        pp = jpadded([_to_jax(o, JOctaveData) for o in octs], jdesc.WSIZE,
+                     dtype=jnp.bfloat16)
+        wnd = jdesc.extract_windows(jkps, pp, jplan)
+        angle = jdesc.compute_orientation(jkps, wnd, jplan)
+        words = jdesc.compute_descriptors(jkps, angle, wnd, jplan).words
         ref.append((int(kps.count), np.asarray(angle), np.asarray(words),
                     np.asarray(wnd.x0), np.asarray(wnd.y0)))
-        kps_t.append(_to_torch_kps(kps))
-        octs_t += _to_torch_octaves(octs)
+        kps_t.append(kps)
+        octs_t += octs
     pp = build_padded_pyramid(octs_t, tdesc.WSIZE)
     tdescribe.describe.launches = 0
     got = tdesc.orient_describe_multi(kps_t, pp, plan)

@@ -84,6 +84,21 @@ def test_config_fields_and_config_from():
                                        jcfg.DESCRIPTOR_WORDS)
 
 
+@pytest.mark.parametrize("field, value, refused", [
+    ("bf16_sampling", False, True),        # would change the descriptors
+    ("fixed_exact_sampling", True, True),  # the port has no fixed path
+    ("pallas_descriptor", "off", False),   # kernel selectors: compatibility
+    ("banded_windows", False, False),
+])
+def test_config_from_refuses_unimplemented_values(field, value, refused):
+    j = dataclasses.asdict(jcfg.AkazeConfig(**{field: value}))
+    if refused:
+        with pytest.raises(ValueError, match=field):
+            tcfg.config_from(j)
+    else:
+        assert getattr(tcfg.config_from(j), field) == value
+
+
 @pytest.mark.parametrize("reordering", [True, False])
 def test_fed_tables_equal(reordering):
     for t in (0.05, 0.7, 3.1, 12.8, 40.0):

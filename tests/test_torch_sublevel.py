@@ -26,7 +26,8 @@ from akaze_tpu.plan import build_plan as jbuild_plan
 from akaze_tpu.scale_space import build_scale_space as jbuild_scale_space
 from akaze_tpu_torch import build_plan, config_from
 from akaze_tpu_torch.config import Diffusivity
-from akaze_tpu_torch.ops.sublevel import (fused_supported, halo_for,
+from akaze_tpu_torch.ops.sublevel import (MAX_HALO, chain_launches,
+                                          fused_supported, halo_for,
                                           sublevel)
 from akaze_tpu_torch.scale_space import build_scale_space
 
@@ -128,6 +129,29 @@ def test_halo_and_support_guard():
     assert fused_supported(halo + 2, 500, taus, 4)
     assert not fused_supported(halo + 1, 500, taus, 4)
     assert not fused_supported(500, halo + 1, taus, 4)
+
+
+@pytest.mark.parametrize("shape, noctaves, splits", [
+    ((960, 1280), 4, 0),     # the main path: one launch per sublevel
+    ((1280, 1920), 5, 4),    # the fifth octave's chains of 34-57 steps
+])
+def test_long_chains_split_into_launches(shape, noctaves, splits):
+    """Each K1 launch's halo fits its shared memory (MAX_HALO); a longer
+    FED chain is cut into launches that together run every step once, in
+    order, and only the first (which also takes the derivatives) needs
+    the derivative reach."""
+    plan = build_plan(*shape, config_from({"noctaves": noctaves}))
+    extra = 0
+    for octave in plan.octaves:
+        for sp in octave.scales:
+            launches = chain_launches(sp.taus, sp.sigma_size)
+            assert sum((c for c, _ in launches), ()) == tuple(sp.taus)
+            assert launches[0][1] == halo_for(sp.sigma_size,
+                                              len(launches[0][0]))
+            for chunk, halo in launches:
+                assert len(chunk) + 3 <= halo <= MAX_HALO
+            extra += len(launches) - 1
+    assert extra == splits
 
 
 def test_sublevel_rejects_bad_input():

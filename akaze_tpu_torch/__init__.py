@@ -1,12 +1,15 @@
 """PyTorch + CUDA port of the AKAZE front-end of ``akaze_tpu``.
 
 FED nonlinear scale space, Hessian-determinant keypoints with sub-pixel
-refinement, MLDB binary descriptors and brute-force Hamming matching, float
-path.  Three kernels are written by hand for Hopper (``csrc/``): the fused
-scale-space sublevel (K1, ops/sublevel.py), orientation + descriptor cell
-sums (K2, ops/describe.py) and the running-top-2 Hamming matcher (K4,
-ops/hamming.py).  They build with nvcc at first use; on CPU tensors each
-runs its plain PyTorch version.
+refinement, MLDB binary descriptors and brute-force Hamming matching, on
+the float path and on the 16.16 fixed-point path (``Akaze(...,
+fixed=True)``).  Three kernels are written by hand for Hopper
+(``csrc/``): the fused scale-space sublevel (K1, ops/sublevel.py),
+orientation + descriptor cell sums (K2, ops/describe.py; it also serves
+the JAX package's private-window kernel K3) and the running-top-2 Hamming
+matcher (K4, ops/hamming.py); K1 and K2 have a float and a fixed flavour.
+They build with nvcc at first use; on CPU tensors each runs its plain
+PyTorch version.
 
 This package imports torch and numpy, never jax and never ``akaze_tpu``.
 """

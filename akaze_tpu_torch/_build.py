@@ -40,9 +40,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP,
-                       _VP],
+                       _I, _VP],
     "akaze_describe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _VP, _I, _I, _I, _I, _VP],
+                       _VP, _I, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                            _VP],
 }

@@ -55,11 +55,22 @@ class AkazeConfig:
                                     # (MAX_DIST, akazed.cu:11)
     # The fields below select kernels and sampling types of the JAX
     # package.  They are kept so that one configuration describes both
-    # packages (``config_from``).  The port implements only the defaults of
-    # the two that change results (bf16 descriptor planes, no exact fixed
-    # sampling) and refuses other values.  The kernel selectors
-    # (``pallas_*``, ``banded_windows``) are accepted for compatibility
-    # only: the port runs its CUDA kernels on CUDA tensors whatever they say.
+    # packages (``config_from``).  The port runs its CUDA kernels on CUDA
+    # tensors whatever the kernel selectors (``pallas_*``,
+    # ``banded_windows``) say: where the JAX package's kernel and XLA
+    # paths compute the same results, only the delivery differs.  Two
+    # settings change results, and the port follows them:
+    #   * ``bf16_sampling``: only True (bf16 float-path descriptor planes)
+    #     is implemented; False is refused.
+    #   * the fixed (16.16) path's descriptor flavour.  The JAX kernel path
+    #     (which "auto" takes on a TPU) samples bf16 planes with the float
+    #     kernel ("approximate"), and so does the port by default; ``fixed_exact_sampling=True`` gives the
+    #     bit-faithful flavour (f32 planes, per-tap rotation and
+    #     truncation), and so does ``pallas_descriptor="off"``, because the
+    #     JAX package's XLA descriptor path IS that flavour on the fixed
+    #     path.  That is why "off" is the one kernel-selector value the
+    #     port reads (``fixed_descriptor_exact``).  The float path ignores
+    #     both: its kernel and XLA paths agree.
     bf16_sampling: bool = True
     pallas_descriptor: str = "auto"
     pallas_scale_space: str = "auto"
@@ -72,6 +83,12 @@ class AkazeConfig:
     def smax(self) -> float:
         return 10.0 * (2.0 ** 0.5)
 
+    @property
+    def fixed_descriptor_exact(self) -> bool:
+        """On the fixed path: whether the descriptor is the bit-faithful
+        flavour (f32 planes) rather than the approximate bf16 one."""
+        return self.fixed_exact_sampling or self.pallas_descriptor == "off"
+
     def __post_init__(self):
         if self.max_scale < 1 or self.max_scale > 5:
             raise ValueError("max_scale must be in [1, 5]")
@@ -80,9 +97,6 @@ class AkazeConfig:
         if not self.bf16_sampling:
             raise ValueError("the port samples bf16 planes only: "
                              "bf16_sampling must be True")
-        if self.fixed_exact_sampling:
-            raise ValueError("the port has no fixed-point path: "
-                             "fixed_exact_sampling must be False")
         for field in ("pallas_descriptor", "pallas_scale_space"):
             if getattr(self, field) not in ("auto", "on", "interpret",
                                             "off"):

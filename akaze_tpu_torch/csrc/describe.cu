@@ -1,12 +1,23 @@
 // K2: per-keypoint orientation and MLDB cell sums.
 //
 // Replaces akaze_tpu/ops/pallas_describe.py:orient_describe_banded (kernel
-// body _make_banded_kernel).  The TPU kernel band-sorts keypoints and
-// streams row bands of the planes through VMEM, because the TPU has no
-// fast per-lane gather.  Here one warp serves one keypoint slot and reads
-// each tap where it lies in the [P, Hp, Wp] bf16 plane stacks.
+// body _make_banded_kernel) and its private-window twin orient_describe
+// (K3, body _make_kernel), whose outputs are the same: the two differ only
+// in how windows reach VMEM.  The TPU kernels band-sort keypoints or copy
+// one window per keypoint, because the TPU has no fast per-lane gather.
+// Here one warp serves one keypoint slot and reads each tap where it lies
+// in the [P, Hp, Wp] plane stacks.
 //
-// Per keypoint:
+// Two flavours, one body templated on the plane type P and FIXED:
+//   float (bf16 planes): as described below;
+//   fixed (f32 planes holding the 16.16 path's integers; the bit-faithful
+//     fastakaze descriptor, pallas_describe.py:901,1031-1059): the bins
+//     take the fast polynomial atan2 of each tap, and each tap's (Lx, Ly)
+//     is rotated by the angle and truncated to an integer BEFORE the cell
+//     sums (akazed.cu:3779-3780), which are then not rotated.  Its cell
+//     sums are integers, exact in any order.
+//
+// Per keypoint (float flavour):
 //   orientation - 121 taps (109 live: the r^2 < 36 disc) of Lx, Ly at
 //     stride iscale around the integer centre, Gaussian-weighted; the angle
 //     of each by the accurate polynomial atan2 (the TPU kernel's
@@ -28,10 +39,10 @@
 // version in ops/describe.py; with --fmad=false (see _build.py) the two
 // agree bit for bit wherever cosf/sinf do.
 //
-// Bound: ~1,600 scattered 2-byte reads per keypoint from planes that do
-// not fit in L2 (3 x 32 planes of 960 x 1280 bf16 = 236 MB at the pair's
-// full size), i.e. memory latency; 4 warps per block and many blocks per
-// SM keep enough reads in flight.  The per-cell sums are serial loops over
+// Bound: ~1,600 scattered 2-byte (fixed: 4-byte) reads per keypoint from
+// planes that do not fit in L2 (3 x 32 planes of 960 x 1280 bf16 = 236 MB
+// at the pair's full size, twice that in f32), i.e. memory latency; 4 warps
+// per block and many blocks per SM keep enough reads in flight.  The per-cell sums are serial loops over
 // the taps on 29 lanes, a few hundred instructions per keypoint.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,11 +101,16 @@ __device__ __forceinline__ float fast_atan2(float y, float x) {
   return y < 0.0f ? -r : r;
 }
 
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+template <typename P, bool FIXED>
 __global__ void __launch_bounds__(WARPS * 32)
-describe_kernel(const __nv_bfloat16* __restrict__ Lp,
-                const __nv_bfloat16* __restrict__ Xp,
-                const __nv_bfloat16* __restrict__ Yp,
-                const int* __restrict__ iparams,
+describe_kernel(const P* __restrict__ Lp, const P* __restrict__ Xp,
+                const P* __restrict__ Yp, const int* __restrict__ iparams,
                 const float* __restrict__ fparams,
                 const float* __restrict__ orient_w,
                 const float* __restrict__ lof, const float* __restrict__ kof,
@@ -125,9 +141,9 @@ describe_kernel(const __nv_bfloat16* __restrict__ Lp,
   const float yf = fparams[2 * n];
   const float xf = fparams[2 * n + 1];
   const size_t base = (static_cast<size_t>(p) * Hp + y0) * Wp + x0;
-  auto tap = [&](const __nv_bfloat16* plane, int r, int c) -> float {
+  auto tap = [&](const P* plane, int r, int c) -> float {
     if (r < 0 || r >= WS || c < 0 || c >= WS) return 0.0f;
-    return __bfloat162float(plane[base + static_cast<size_t>(r) * Wp + c]);
+    return to_float(plane[base + static_cast<size_t>(r) * Wp + c]);
   };
 
   // ---- orientation ----
@@ -139,7 +155,8 @@ describe_kernel(const __nv_bfloat16* __restrict__ Lp,
     const float dy = w * tap(Yp, r, c);
     s_dx[warp][t] = dx;
     s_dy[warp][t] = dy;
-    const int bin = static_cast<int>(atan2_poly(dy, dx) * BIN_SCALE) + 21;
+    const float a = FIXED ? fast_atan2(dy, dx) : atan2_poly(dy, dx);
+    const int bin = static_cast<int>(a * BIN_SCALE) + 21;
     s_bin[warp][t] = w > 0.0f ? min(max(bin, 0), NBINS - 1) : -1;
   }
   __syncwarp();
@@ -186,9 +203,18 @@ describe_kernel(const __nv_bfloat16* __restrict__ Lp,
     const float k = kof[t];
     const int xs = static_cast<int>(xf + sc * (k * co - l * si) + 0.5f);
     const int ys = static_cast<int>(yf + sc * (k * si + l * co) + 0.5f);
+    const float x = tap(Xp, ys, xs);
+    const float y = tap(Yp, ys, xs);
     s_tap[warp][0][t] = tap(Lp, ys, xs);
-    s_tap[warp][1][t] = tap(Xp, ys, xs);
-    s_tap[warp][2][t] = tap(Yp, ys, xs);
+    if (FIXED) {   // rotate, then truncate toward zero
+      s_tap[warp][1][t] =
+          static_cast<float>(static_cast<int>((-si) * x + co * y));
+      s_tap[warp][2][t] =
+          static_cast<float>(static_cast<int>(co * x + si * y));
+    } else {
+      s_tap[warp][1][t] = x;
+      s_tap[warp][2][t] = y;
+    }
   }
   __syncwarp();
   if (lane < NCELLS) {
@@ -202,14 +228,28 @@ describe_kernel(const __nv_bfloat16* __restrict__ Lp,
       }
     }
     acc[3 * lane] = a0;
-    acc[3 * lane + 1] = (-si) * a1 + co * a2;
-    acc[3 * lane + 2] = co * a1 + si * a2;
+    acc[3 * lane + 1] = FIXED ? a1 : (-si) * a1 + co * a2;
+    acc[3 * lane + 2] = FIXED ? a2 : co * a1 + si * a2;
   }
+}
+
+template <typename P, bool FIXED>
+void launch(const void* L, const void* Lx, const void* Ly,
+            const int* iparams, const float* fparams, const float* orient_w,
+            const float* lof, const float* kof, const int* cells,
+            float* angle, float* acc, int N, int Hp, int Wp, int ntaps,
+            cudaStream_t stream) {
+  const int blocks = (N + WARPS - 1) / WARPS;
+  describe_kernel<P, FIXED><<<blocks, WARPS * 32, 0, stream>>>(
+      static_cast<const P*>(L), static_cast<const P*>(Lx),
+      static_cast<const P*>(Ly), iparams, fparams, orient_w, lof, kof, cells,
+      angle, acc, N, Hp, Wp, ntaps);
 }
 
 }  // namespace
 
-// Planes: three [P, Hp, Wp] bf16 device arrays.  iparams [N, 8] int32,
+// Planes: three [P, Hp, Wp] device arrays, bf16 (float flavour) or float32
+// (fixed flavour, `fixed` != 0).  iparams [N, 8] int32,
 // fparams [N, 2] float32 (descriptor.slot_params).  Tables (device):
 // orient_w [121], lof/kof [ntaps] float32, cells [ntaps, 3] int32 (the
 // tap's cell in each grid, -1 for none).  Out: angle [N], acc [N, 87].
@@ -218,16 +258,16 @@ extern "C" int akaze_describe(const void* L, const void* Lx, const void* Ly,
                               const float* orient_w, const float* lof,
                               const float* kof, const int* cells,
                               float* angle, float* acc, int N, int Hp,
-                              int Wp, int ntaps, void* stream) {
+                              int Wp, int ntaps, int fixed, void* stream) {
   if (N < 0 || ntaps < 1 || ntaps > MAX_TAPS || Hp < WS || Wp < WS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (N + WARPS - 1) / WARPS;
-  describe_kernel<<<blocks, WARPS * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(L),
-      static_cast<const __nv_bfloat16*>(Lx),
-      static_cast<const __nv_bfloat16*>(Ly), iparams, fparams, orient_w, lof,
-      kof, cells, angle, acc, N, Hp, Wp, ntaps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fixed)
+    launch<float, true>(L, Lx, Ly, iparams, fparams, orient_w, lof, kof,
+                        cells, angle, acc, N, Hp, Wp, ntaps, s);
+  else
+    launch<__nv_bfloat16, false>(L, Lx, Ly, iparams, fparams, orient_w, lof,
+                                 kof, cells, angle, acc, N, Hp, Wp, ntaps, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,6 +37,17 @@
 // where the plain version reflects the derivative plane (an odd function,
 // so its sign flips).  That band lies inside the extrema border.
 //
+// Two flavours, one body templated on the plane type T (Flavour<T>):
+// float32, and the 16.16 fixed point of the reference's fast path (int32
+// planes; the Gaussian, Scharr, FED step and derivatives in integers with
+// an arithmetic >> 16 after each weighted sum; the conductivity in float,
+// stored int(g * 65536 + 0.5); akazed.cu:3406-3473).  The fixed flavour
+// sums and multiplies in uint32 and converts back, so that its int32
+// arithmetic wraps as XLA's does (signed overflow is undefined in C++, and
+// a long FED step's factor times its neighbourhood sum does overflow).
+// int32 buffers are 4 bytes like float ones: tiling, halo and shared
+// memory are the same for both.
+//
 // Expression order follows ops/conv.py, ops/diffusion.py and
 // ops/scharr.py; built with --fmad=false (see _build.py).
 #include <cuda_runtime.h>
@@ -52,9 +63,46 @@ constexpr int THREADS_Y = 8;
 constexpr int MAX_HALO = 32;     // ops/sublevel.py MAX_HALO
 constexpr int MAX_TAUS = MAX_HALO;
 constexpr int MAX_RADIUS = 5;
-constexpr float FAC1 = 0.09375f;   // SCHARR_FAC1
-constexpr float FAC2 = 0.3125f;    // SCHARR_FAC2
 
+// The arithmetic of each flavour.  A is the type a weighted stencil sum
+// accumulates in; out() turns such a sum into a plane value.
+template <typename T>
+struct Flavour;
+
+template <>
+struct Flavour<float> {
+  using A = float;
+  __device__ static float fac1() { return 0.09375f; }   // SCHARR_FAC1
+  __device__ static float fac2() { return 0.3125f; }    // SCHARR_FAC2
+  __device__ static float out(float v) { return v; }
+  __device__ static float flow(float g) { return g; }
+  // one FED step; c = 0.5 * tau
+  __device__ static float fed(float ic, float c, float s) {
+    return ic + c * s;
+  }
+};
+
+template <>
+struct Flavour<int> {
+  using A = unsigned;                                // wraps modulo 2^32
+  __device__ static unsigned fac1() { return 6144u; }    // SCHARR_IFAC1
+  __device__ static unsigned fac2() { return 20480u; }   // SCHARR_IFAC2
+  __device__ static int out(unsigned v) { return static_cast<int>(v) >> 16; }
+  // a float conductivity stored 16.16, truncated
+  __device__ static int flow(float g) {
+    return static_cast<int>(g * 65536.0f + 0.5f);
+  }
+  // one FED step; c = the 16.16 step factor:
+  // ((c * (s >> 16)) >> 16) + ic
+  __device__ static int fed(int ic, int c, unsigned s) {
+    const unsigned prod =
+        static_cast<unsigned>(c) * static_cast<unsigned>(out(s));
+    return static_cast<int>(static_cast<unsigned>(out(prod)) +
+                            static_cast<unsigned>(ic));
+  }
+};
+
+template <typename T>
 struct SublevelArgs {
   int B, H, W;
   int halo;            // stencil reach of the sublevel, px
@@ -65,8 +113,8 @@ struct SublevelArgs {
   int smooth_outside;  // smooth given (octave start), not computed
   int ntaus;
   int radius;          // radius of the in-kernel smooth
-  float half_tau[MAX_TAUS];     // 0.5 * tau of each FED step, float32
-  float kern[MAX_RADIUS + 1];   // half Gaussian [k0..kr], float32
+  T factor[MAX_TAUS];  // each FED step's factor: 0.5 * tau, or 16.16
+  T kern[MAX_RADIUS + 1];   // half Gaussian [k0..kr], float32 or 16.16
 };
 
 __device__ __forceinline__ float flow_from_dif2(float d, int diffusivity) {
@@ -84,22 +132,27 @@ __device__ __forceinline__ float flow_from_dif2(float d, int diffusivity) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS_X * THREADS_Y)
-sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
-                const float* __restrict__ smooth_in,
-                const float* __restrict__ L_in,
-                const float* __restrict__ ikc, float* __restrict__ L,
-                float* __restrict__ det, float* __restrict__ lx,
-                float* __restrict__ ly) {
-  extern __shared__ float smem[];
+sublevel_kernel(const SublevelArgs<T> a, const T* __restrict__ src,
+                const T* __restrict__ smooth_in, const T* __restrict__ L_in,
+                const float* __restrict__ ikc, T* __restrict__ L,
+                T* __restrict__ det, T* __restrict__ lx,
+                T* __restrict__ ly) {
+  using F = Flavour<T>;
+  using A = typename F::A;
+  auto w = [](T v) { return static_cast<A>(v); };
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int halo = a.halo;
   const int EW = TILE_X + 2 * halo;   // extended tile: output tile + halo
   const int EH = TILE_Y + 2 * halo;
   const int ES = EW * EH;
-  float* bufA = smem;                 // start of the chain, FED ping; later Ly
-  float* bufB = smem + ES;            // src of a continued chain; FED pong
-  float* bufF = smem + 2 * ES;        // row-pass scratch, flow; later Lx
-  float* bufS = smem + 3 * ES;        // smooth
+  T* bufA = smem;                     // start of the chain, FED ping; later Ly
+  T* bufB = smem + ES;                // src of a continued chain; FED pong
+  T* bufF = smem + 2 * ES;            // row-pass scratch, flow; later Lx
+  T* bufS = smem + 3 * ES;            // smooth
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -109,10 +162,10 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
   const size_t plane = static_cast<size_t>(a.H) * a.W;
   // the chain starts from src, or from L_in when it continues a chain;
   // the smooth comes from outside or is taken of src (bufA or bufB)
-  const float* startb = (L_in ? L_in : src) + b * plane;
-  const float* smb = a.smooth_outside ? smooth_in + b * plane : nullptr;
-  const float* srcb = (L_in && !smb) ? src + b * plane : nullptr;
-  const float* sbuf = srcb ? bufB : bufA;
+  const T* startb = (L_in ? L_in : src) + b * plane;
+  const T* smb = a.smooth_outside ? smooth_in + b * plane : nullptr;
+  const T* srcb = (L_in && !smb) ? src + b * plane : nullptr;
+  const T* sbuf = srcb ? bufB : bufA;
 
   for (int ey = ty; ey < EH; ey += THREADS_Y) {
     const size_t row = static_cast<size_t>(mirror_index(oy - halo + ey, a.H)) * a.W;
@@ -131,61 +184,64 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
     const int r = a.radius;
     for (int ey = ty; ey < EH; ey += THREADS_Y) {
       for (int ex = r + tx; ex < EW - r; ex += THREADS_X) {
-        const float* p = sbuf + ey * EW + ex;
-        float v = a.kern[0] * p[0];
-        for (int i = 1; i <= r; ++i) v = v + a.kern[i] * (p[-i] + p[i]);
-        bufF[ey * EW + ex] = v;
+        const T* p = sbuf + ey * EW + ex;
+        A v = w(a.kern[0]) * w(p[0]);
+        for (int i = 1; i <= r; ++i)
+          v = v + w(a.kern[i]) * (w(p[-i]) + w(p[i]));
+        bufF[ey * EW + ex] = F::out(v);
       }
     }
     __syncthreads();
     for (int ey = r + ty; ey < EH - r; ey += THREADS_Y) {
       for (int ex = r + tx; ex < EW - r; ex += THREADS_X) {
-        const float* p = bufF + ey * EW + ex;
-        float v = a.kern[0] * p[0];
+        const T* p = bufF + ey * EW + ex;
+        A v = w(a.kern[0]) * w(p[0]);
         for (int i = 1; i <= r; ++i)
-          v = v + a.kern[i] * (p[-i * EW] + p[i * EW]);
-        bufS[ey * EW + ex] = v;
+          v = v + w(a.kern[i]) * (w(p[-i * EW]) + w(p[i * EW]));
+        bufS[ey * EW + ex] = F::out(v);
       }
     }
     __syncthreads();
     ms = r;
   }
 
-  const float* Lbuf = a.first_sublevel ? bufS : bufA;
+  const T* Lbuf = a.first_sublevel ? bufS : bufA;
   if (a.ntaus > 0) {
     const float kc = ikc[b];
     const int mf = ms + 1;
     for (int ey = mf + ty; ey < EH - mf; ey += THREADS_Y) {
       for (int ex = mf + tx; ex < EW - mf; ex += THREADS_X) {
-        const float* p = bufS + ey * EW + ex;
-        const float gx = 10.0f * (p[1] - p[-1])
-            + 3.0f * (p[-EW + 1] + p[EW + 1] - p[-EW - 1] - p[EW - 1]);
-        const float gy = 10.0f * (p[EW] - p[-EW])
-            + 3.0f * (p[EW - 1] + p[EW + 1] - p[-EW - 1] - p[-EW + 1]);
-        bufF[ey * EW + ex] = flow_from_dif2(kc * (gx * gx + gy * gy),
-                                            a.diffusivity);
+        const T* p = bufS + ey * EW + ex;
+        const A gx = w(10) * (w(p[1]) - w(p[-1]))
+            + w(3) * (w(p[-EW + 1]) + w(p[EW + 1]) - w(p[-EW - 1])
+                      - w(p[EW - 1]));
+        const A gy = w(10) * (w(p[EW]) - w(p[-EW]))
+            + w(3) * (w(p[EW - 1]) + w(p[EW + 1]) - w(p[-EW - 1])
+                      - w(p[-EW + 1]));
+        const float m2 = static_cast<float>(static_cast<T>(gx * gx + gy * gy));
+        bufF[ey * EW + ex] = F::flow(flow_from_dif2(kc * m2, a.diffusivity));
       }
     }
     __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
+    T* cur = bufA;
+    T* nxt = bufB;
     for (int k = 0; k < a.ntaus; ++k) {
       const int m = mf + 1 + k;
-      const float c = a.half_tau[k];
+      const T c = a.factor[k];
       for (int ey = m + ty; ey < EH - m; ey += THREADS_Y) {
         for (int ex = m + tx; ex < EW - m; ex += THREADS_X) {
           const int i = ey * EW + ex;
-          const float ic = cur[i];
-          const float fc = bufF[i];
-          const float s = (fc + bufF[i + 1]) * (cur[i + 1] - ic)
-              + (fc + bufF[i - 1]) * (cur[i - 1] - ic)
-              + (fc + bufF[i + EW]) * (cur[i + EW] - ic)
-              + (fc + bufF[i - EW]) * (cur[i - EW] - ic);
-          nxt[i] = ic + c * s;
+          const T ic = cur[i];
+          const A fc = w(bufF[i]);
+          const A s = (fc + w(bufF[i + 1])) * (w(cur[i + 1]) - w(ic))
+              + (fc + w(bufF[i - 1])) * (w(cur[i - 1]) - w(ic))
+              + (fc + w(bufF[i + EW])) * (w(cur[i + EW]) - w(ic))
+              + (fc + w(bufF[i - EW])) * (w(cur[i - EW]) - w(ic));
+          nxt[i] = F::fed(ic, c, s);
         }
       }
       __syncthreads();
-      float* t = cur;
+      T* t = cur;
       cur = nxt;
       nxt = t;
     }
@@ -203,18 +259,20 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
 
   const int st = a.step;
   const int so = st * EW;
-  float* bufX = bufF;
-  float* bufY = bufA;
+  const A f1 = F::fac1();
+  const A f2 = F::fac2();
+  T* bufX = bufF;
+  T* bufY = bufA;
   const int md = halo - st;
   for (int ey = md + ty; ey < EH - md; ey += THREADS_Y) {
     for (int ex = md + tx; ex < EW - md; ex += THREADS_X) {
-      const float* p = bufS + ey * EW + ex;
-      bufX[ey * EW + ex] = FAC1 * (p[-so + st] + p[so + st] - p[-so - st]
-                                   - p[so - st])
-          + FAC2 * (p[st] - p[-st]);
-      bufY[ey * EW + ex] = FAC1 * (p[so + st] + p[so - st] - p[-so + st]
-                                   - p[-so - st])
-          + FAC2 * (p[so] - p[-so]);
+      const T* p = bufS + ey * EW + ex;
+      bufX[ey * EW + ex] = F::out(
+          f1 * (w(p[-so + st]) + w(p[so + st]) - w(p[-so - st]) - w(p[so - st]))
+          + f2 * (w(p[st]) - w(p[-st])));
+      bufY[ey * EW + ex] = F::out(
+          f1 * (w(p[so + st]) + w(p[so - st]) - w(p[-so + st]) - w(p[-so - st]))
+          + f2 * (w(p[so]) - w(p[-so])));
     }
   }
   __syncthreads();
@@ -223,43 +281,32 @@ sublevel_kernel(const SublevelArgs a, const float* __restrict__ src,
     for (int x = tx; x < TILE_X && ox + x < a.W; x += THREADS_X) {
       const int i = (y + halo) * EW + x + halo;
       const size_t g = b * plane + static_cast<size_t>(oy + y) * a.W + ox + x;
-      const float* X = bufX + i;
-      const float* Y = bufY + i;
-      const float dxx = FAC1 * (X[-so + st] + X[so + st] - X[-so - st]
-                                - X[so - st])
-          + FAC2 * (X[st] - X[-st]);
-      const float dxy = FAC1 * (X[so + st] + X[so - st] - X[-so + st]
-                                - X[-so - st])
-          + FAC2 * (X[so] - X[-so]);
-      const float dyy = FAC1 * (Y[so + st] + Y[so - st] - Y[-so + st]
-                                - Y[-so - st])
-          + FAC2 * (Y[so] - Y[-so]);
+      const T* X = bufX + i;
+      const T* Y = bufY + i;
+      const T dxx = F::out(
+          f1 * (w(X[-so + st]) + w(X[so + st]) - w(X[-so - st]) - w(X[so - st]))
+          + f2 * (w(X[st]) - w(X[-st])));
+      const T dxy = F::out(
+          f1 * (w(X[so + st]) + w(X[so - st]) - w(X[-so + st]) - w(X[-so - st]))
+          + f2 * (w(X[so]) - w(X[-so])));
+      const T dyy = F::out(
+          f1 * (w(Y[so + st]) + w(Y[so - st]) - w(Y[-so + st]) - w(Y[-so - st]))
+          + f2 * (w(Y[so]) - w(Y[-so])));
       lx[g] = X[0];
       ly[g] = Y[0];
-      det[g] = dxx * dyy - dxy * dxy;
+      det[g] = static_cast<T>(w(dxx) * w(dyy) - w(dxy) * w(dxy));
     }
   }
 }
 
-}  // namespace
-
-// src, smooth (or NULL), L_in (or NULL), L/det/lx/ly: [B, H, W] float32
-// device arrays, L distinct from L_in; ikc: [B] float32 device array;
-// half_taus [ntaus] and kern [radius + 1]: float32 HOST arrays, copied into
-// the launch arguments.  det/lx/ly are written only when write_derivs.
-extern "C" int akaze_sublevel(const float* src, const float* smooth,
-                              const float* L_in, const float* ikc, float* L,
-                              float* det, float* lx, float* ly, int B, int H,
-                              int W, int halo, int step, int diffusivity,
-                              int first_sublevel, int write_derivs,
-                              int ntaus, const float* half_taus, int radius,
-                              const float* kern, void* stream) {
-  if (B < 1 || B > 65535 || ntaus < 0 || ntaus > MAX_TAUS || radius < 0 ||
-      radius > MAX_RADIUS || step < 1 || halo > MAX_HALO ||
-      (write_derivs && halo < 2 * step + radius) ||
-      halo < ntaus + radius + 1 || H <= halo || W <= halo || L == L_in)
-    return static_cast<int>(cudaErrorInvalidValue);
-  SublevelArgs a{};
+template <typename T>
+int launch(const void* src, const void* smooth, const void* L_in,
+           const float* ikc, void* L, void* det, void* lx, void* ly, int B,
+           int H, int W, int halo, int step, int diffusivity,
+           int first_sublevel, int write_derivs, int ntaus,
+           const void* factors, int radius, const void* kern,
+           cudaStream_t stream) {
+  SublevelArgs<T> a{};
   a.B = B;
   a.H = H;
   a.W = W;
@@ -271,18 +318,51 @@ extern "C" int akaze_sublevel(const float* src, const float* smooth,
   a.smooth_outside = smooth != nullptr;
   a.ntaus = ntaus;
   a.radius = radius;
-  for (int i = 0; i < ntaus; ++i) a.half_tau[i] = half_taus[i];
-  for (int i = 0; i <= radius; ++i) a.kern[i] = kern[i];
+  const T* f = static_cast<const T*>(factors);
+  const T* k = static_cast<const T*>(kern);
+  for (int i = 0; i < ntaus; ++i) a.factor[i] = f[i];
+  for (int i = 0; i <= radius; ++i) a.kern[i] = k[i];
   const size_t EW = TILE_X + 2 * halo;
   const size_t EH = TILE_Y + 2 * halo;
-  const size_t bytes = 4 * EW * EH * sizeof(float);
+  const size_t bytes = 4 * EW * EH * sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
-      sublevel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sublevel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((W + TILE_X - 1) / TILE_X, (H + TILE_Y - 1) / TILE_Y, B);
   const dim3 block(THREADS_X, THREADS_Y);
-  sublevel_kernel<<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(
-      a, src, smooth, L_in, ikc, L, det, lx, ly);
+  sublevel_kernel<T><<<grid, block, bytes, stream>>>(
+      a, static_cast<const T*>(src), static_cast<const T*>(smooth),
+      static_cast<const T*>(L_in), ikc, static_cast<T*>(L),
+      static_cast<T*>(det), static_cast<T*>(lx), static_cast<T*>(ly));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// src, smooth (or NULL), L_in (or NULL), L/det/lx/ly: [B, H, W] device
+// arrays of float32, or int32 when `fixed`; L distinct from L_in.  ikc:
+// [B] float32 device array.  factors [ntaus] (0.5 * tau, or the 16.16 step
+// factors) and kern [radius + 1]: HOST arrays of the planes' type, copied
+// into the launch arguments.  det/lx/ly are written only when write_derivs.
+extern "C" int akaze_sublevel(const void* src, const void* smooth,
+                              const void* L_in, const float* ikc, void* L,
+                              void* det, void* lx, void* ly, int B, int H,
+                              int W, int halo, int step, int diffusivity,
+                              int first_sublevel, int write_derivs,
+                              int ntaus, const void* factors, int radius,
+                              const void* kern, int fixed, void* stream) {
+  if (B < 1 || B > 65535 || ntaus < 0 || ntaus > MAX_TAUS || radius < 0 ||
+      radius > MAX_RADIUS || step < 1 || halo > MAX_HALO ||
+      (write_derivs && halo < 2 * step + radius) ||
+      halo < ntaus + radius + 1 || H <= halo || W <= halo || L == L_in)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fixed)
+    return launch<int>(src, smooth, L_in, ikc, L, det, lx, ly, B, H, W, halo,
+                       step, diffusivity, first_sublevel, write_derivs, ntaus,
+                       factors, radius, kern, s);
+  return launch<float>(src, smooth, L_in, ikc, L, det, lx, ly, B, H, W, halo,
+                       step, diffusivity, first_sublevel, write_derivs, ntaus,
+                       factors, radius, kern, s);
 }

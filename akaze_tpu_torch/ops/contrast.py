@@ -1,7 +1,7 @@
 """Contrast factor estimation: percentile of the gradient magnitude (PyTorch).
 
-Port of the float half of ``akaze_tpu/ops/contrast.py``, with the same
-bisected percentile (contrast.py:41-69).  kcontrast feeds every
+Port of ``akaze_tpu/ops/contrast.py``, with the same bisected percentile
+(contrast.py:41-69).  kcontrast feeds every
 conductivity, so any other percentile algorithm would change every plane
 of the scale space.  No atomics and no histogram scatter: nine masked
 counting reductions find the percentile bin.
@@ -52,3 +52,22 @@ def percentile_contrast(grad: torch.Tensor, per: float):
                        0, NBINS - 1)
     k = _percentile_bisect(bins, h * w, per)
     return k.to(torch.float32) / hfactor
+
+
+def percentile_contrast_fixed(grad: torch.Tensor, per: float):
+    """Fixed-point path (akazed.cu:4098-4172).
+
+    ``grad``: [..., H, W] int32 magnitudes.  The max is floored at 1; the
+    bin factor is quantized 16.16 (akazed.cu:4138) and applied with
+    ``>> 16``; kcontrast = k * max_contrast // NBINS (integer division,
+    akazed.cu:4169).  Returns int32 kcontrast, one per leading index.
+    """
+    h, w = grad.shape[-2:]
+    max_contrast = torch.clamp(grad.flatten(-2).amax(-1), min=1)
+    hfactor = (torch.full(max_contrast.shape, NBINS, dtype=torch.float32,
+                          device=grad.device)
+               / max_contrast.to(torch.float32) * 65536 + 0.5
+               ).to(torch.int32)
+    bins = torch.clamp((grad * hfactor[..., None, None]) >> 16, 0, NBINS - 1)
+    k = _percentile_bisect(bins, h * w, per)
+    return torch.div(k * max_contrast, NBINS, rounding_mode="floor")

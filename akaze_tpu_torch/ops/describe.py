@@ -1,8 +1,16 @@
 """Kernel K2: per-keypoint orientation and MLDB cell sums.
 
-Replaces ``akaze_tpu/ops/pallas_describe.py:orient_describe_banded``.  The
-CUDA kernel is ``csrc/describe.cu``; its header says what it computes, what
+Replaces ``akaze_tpu/ops/pallas_describe.py:orient_describe_banded`` and
+its private-window twin ``orient_describe`` (K3), which compute the same
+outputs and differ only in how the TPU delivers windows to VMEM.  The CUDA
+kernel is ``csrc/describe.cu``; its header says what it computes, what
 bounds it on the card and what its design does about that.
+
+Two flavours, as in the JAX kernels: float (bf16 planes, the derivative
+cell sums rotated after summation) and the bit-faithful fixed flavour
+(``fixed=True``: float32 planes holding the 16.16 path's integers, the fast
+polynomial atan2 for the orientation bins, each tap's derivatives rotated
+and truncated to integers before the cell sums).
 
 ``describe`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``describe_plain``, which evaluates the same
@@ -100,7 +108,8 @@ def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < 0, -r, r)
 
 
-def describe_plain(iparams, fparams, planes, tables: DescribeTables):
+def describe_plain(iparams, fparams, planes, tables: DescribeTables,
+                   fixed: bool = False):
     """The plain PyTorch version of K2; same arguments and results as
     ``describe``."""
     plane_l, plane_x, plane_y = planes
@@ -126,8 +135,8 @@ def describe_plain(iparams, fparams, planes, tables: DescribeTables):
     w = tables.orient_w
     dx = w * sample(plane_x, r, c)
     dy = w * sample(plane_y, r, c)
-    abin = ((atan2_poly(dy, dx) * BIN_SCALE).to(torch.int32) + 21).clamp(
-        0, 41)
+    tap_angle = (fast_atan2 if fixed else atan2_poly)(dy, dx)
+    abin = ((tap_angle * BIN_SCALE).to(torch.int32) + 21).clamp(0, 41)
     bins = torch.arange(42, device=dev, dtype=torch.int32)
     resx = torch.zeros((iparams.shape[0], 42), device=dev)
     resy = torch.zeros_like(resx)
@@ -154,20 +163,26 @@ def describe_plain(iparams, fparams, planes, tables: DescribeTables):
           + 0.5).to(torch.int64)
     ys = (yf[:, None] + sc * (tables.kof * si + tables.lof * co)
           + 0.5).to(torch.int64)
-    taps = torch.stack([sample(pl, ys, xs) for pl in planes], dim=-1)
+    tl, tx, ty = (sample(pl, ys, xs) for pl in planes)
+    if fixed:   # rotate each tap, then truncate toward zero
+        tx, ty = (((-si) * tx + co * ty).to(torch.int32).to(torch.float32),
+                  (co * tx + si * ty).to(torch.int32).to(torch.float32))
+    taps = torch.stack([tl, tx, ty], dim=-1)
     taps = torch.cat([taps, torch.zeros_like(taps[:, :1])], dim=1)
     grouped = taps[:, cell_members(tables.cells)]    # [N, 29, M, 3]
     acc = grouped[:, :, 0]
     for j in range(1, grouped.shape[2]):
         acc = acc + grouped[:, :, j]
-    rx = (-si) * acc[..., 1] + co * acc[..., 2]
-    ry = co * acc[..., 1] + si * acc[..., 2]
-    acc = torch.stack([acc[..., 0], rx, ry], dim=-1).reshape(-1, 3 * NCELLS)
+    if not fixed:
+        acc = torch.stack([acc[..., 0],
+                           (-si) * acc[..., 1] + co * acc[..., 2],
+                           co * acc[..., 1] + si * acc[..., 2]], dim=-1)
+    acc = acc.reshape(-1, 3 * NCELLS)
     acc = torch.where(live[:, None], acc, torch.zeros_like(acc))
     return angle, acc
 
 
-def _launch(iparams, fparams, planes, tables):
+def _launch(iparams, fparams, planes, tables, fixed):
     n = iparams.shape[0]
     _, hp, wp = planes[0].shape
     angle = torch.empty(n, dtype=torch.float32, device=iparams.device)
@@ -180,22 +195,26 @@ def _launch(iparams, fparams, planes, tables):
             _build.ptr(fparams), _build.ptr(tables.orient_w),
             _build.ptr(tables.lof), _build.ptr(tables.kof),
             _build.ptr(tables.cells), _build.ptr(angle), _build.ptr(acc),
-            n, hp, wp, tables.lof.shape[0], _build.stream_of(iparams))
+            n, hp, wp, tables.lof.shape[0], int(fixed),
+            _build.stream_of(iparams))
     _build.check(err, "describe_kernel")
     describe.launches += 1
     return angle, acc
 
 
 def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
-             tables: DescribeTables):
+             tables: DescribeTables, fixed: bool = False):
     """Orientation and MLDB cell sums of N keypoint slots.
 
     Args:
       iparams: [N, 8] int32 per slot (plane, y0, x0, oy, ox, iscale, live,
         0), from ``descriptor.slot_params``.
       fparams: [N, 2] float32 per slot (yf, xf), window-local.
-      planes: (L, Lx, Ly), each [P, Hp, Wp] bfloat16 with Hp, Wp >= 128.
+      planes: (L, Lx, Ly), each [P, Hp, Wp] with Hp, Wp >= 128: bfloat16,
+        or float32 for the fixed flavour.
       tables: ``describe_tables(patsize, device)``.
+      fixed: the bit-faithful fixed flavour; must agree with the planes'
+        type.
 
     Returns (angle [N] float32 in [0, 2 pi), acc [N, 87] float32 with the
     cell sums at cell * 3 + channel, channels (L, rotated Lx, rotated Ly)).
@@ -209,15 +228,16 @@ def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
     if len(shape) != 3 or shape[1] < WSIZE or shape[2] < WSIZE:
         raise ValueError(f"planes must be [P, >={WSIZE}, >={WSIZE}], "
                          f"got {tuple(shape)}")
+    dtype = torch.float32 if fixed else torch.bfloat16
     for name, pl in zip(("L", "Lx", "Ly"), planes):
-        _build.check_tensor(name, pl, torch.bfloat16, shape, dev)
+        _build.check_tensor(name, pl, dtype, shape, dev)
     for name in DescribeTables._fields:
         if getattr(tables, name).device != dev:
             raise ValueError(f"table {name} is not on {dev}")
     if dev.type == "cpu":
-        return describe_plain(iparams, fparams, planes, tables)
+        return describe_plain(iparams, fparams, planes, tables, bool(fixed))
     if dev.type == "cuda":
-        return _launch(iparams, fparams, planes, tables)
+        return _launch(iparams, fparams, planes, tables, bool(fixed))
     raise ValueError(f"no describe kernel for device {dev}")
 
 

@@ -1,11 +1,16 @@
 """End-to-end AKAZE pipeline (PyTorch): image(s) -> features -> matches.
 
-Port of the float path of ``akaze_tpu/pipeline.py``.  One code path serves
-one image and a pair: the scale space of all B images runs with one K1
-launch per sublevel, detection runs per image, and one K2 launch describes
-every image's keypoints.  ``Akaze.match`` runs K4.  On CPU tensors every
+Port of ``akaze_tpu/pipeline.py``.  One code path serves one image and a
+pair: the scale space of all B images runs with one K1 launch per
+sublevel, detection runs per image, and one K2 launch describes every
+image's keypoints.  ``Akaze.match`` runs K4.  On CPU tensors every
 kernel's plain version runs instead; nothing chooses a device behind the
 caller's back.
+
+``fixed=True`` selects the 16.16 fixed-point path (the reference's
+``fastDetectAndCompute``): images are raw 0..255 values taken as int32,
+and the configuration picks the descriptor's flavour
+(``AkazeConfig.fixed_descriptor_exact``).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import numpy as np
 import torch
 
 from .config import AkazeConfig
-from .descriptor import WSIZE, orient_describe_multi, words_to_numpy
+from .descriptor import (WSIZE, orient_describe_multi, plane_dtype,
+                         words_to_numpy)
 from .detect import build_padded_pyramid, detect_keypoints
 from .match import Matches, match
 from .plan import PipelinePlan, build_plan
@@ -37,20 +43,22 @@ class Features(NamedTuple):
     overflow: torch.Tensor  # scalar bool: NMS survivors dropped by a cap
 
 
-def _as_images(images, device) -> torch.Tensor:
-    """[B, H, W] float32 on ``device`` (default: where a tensor already is,
-    else the CPU)."""
+def _as_images(images, device, fixed: bool = False) -> torch.Tensor:
+    """[B, H, W] on ``device`` (default: where a tensor already is, else the
+    CPU): float32, or int32 for the fixed path."""
     if device is None:
         device = images.device if isinstance(images, torch.Tensor) else "cpu"
-    return torch.as_tensor(images, dtype=torch.float32,
-                           device=device).contiguous()
+    dtype = torch.int32 if fixed else torch.float32
+    return torch.as_tensor(images, device=device).to(dtype).contiguous()
 
 
-def detect_batch(images, plan: PipelinePlan, *, device=None):
-    """Scale space and keypoints of each image of a [B, H, W] float batch
-    in [0, 1], plus the batch's bf16 plane stack for the descriptor.
-    Returns (list of Keypoints, PaddedPyramid)."""
-    x = _as_images(images, device)
+def detect_batch(images, plan: PipelinePlan, *, fixed: bool = False,
+                 device=None):
+    """Scale space and keypoints of each image of a [B, H, W] batch (float
+    in [0, 1], or raw 0..255 with ``fixed``), plus the batch's plane stack
+    for the descriptor (``descriptor.plane_dtype``).  Returns (list of
+    Keypoints, PaddedPyramid)."""
+    x = _as_images(images, device, fixed)
     if x.dim() != 3 or tuple(x.shape[1:]) != (plan.height, plan.width):
         raise ValueError(f"images must be [B, {plan.height}, {plan.width}],"
                          f" got {tuple(x.shape)}")
@@ -58,47 +66,55 @@ def detect_batch(images, plan: PipelinePlan, *, device=None):
     per_image = [[OctaveData(*(p[i] for p in o)) for o in octs]
                  for i in range(x.shape[0])]
     kps = [detect_keypoints(o, plan) for o in per_image]
-    pp = build_padded_pyramid([o for img in per_image for o in img], WSIZE)
+    pp = build_padded_pyramid([o for img in per_image for o in img], WSIZE,
+                              plane_dtype(plan, fixed))
     return kps, pp
 
 
 def detect_and_compute_batch(images, plan: PipelinePlan, *,
-                             device=None) -> list:
-    """Features of each image of a [B, H, W] float batch in [0, 1]: one K1
-    launch per sublevel and one K2 launch for the whole batch."""
-    kps, pp = detect_batch(images, plan, device=device)
-    described = orient_describe_multi(kps, pp, plan)
+                             fixed: bool = False, device=None) -> list:
+    """Features of each image of a [B, H, W] batch (float in [0, 1], or raw
+    0..255 with ``fixed``): one K1 launch per sublevel and one K2 launch
+    for the whole batch."""
+    kps, pp = detect_batch(images, plan, fixed=fixed, device=device)
+    described = orient_describe_multi(kps, pp, plan, fixed)
     return [Features(x=k.x, y=k.y, size=k.size, layer=k.layer,
                      response=k.response, angle=angle, words=words,
                      valid=k.valid, count=k.count, overflow=k.overflow)
             for k, (angle, words) in zip(kps, described)]
 
 
-def detect_and_compute(image, plan: PipelinePlan, *,
+def detect_and_compute(image, plan: PipelinePlan, *, fixed: bool = False,
                        device=None) -> Features:
-    """Features of one [H, W] float image in [0, 1]."""
-    return detect_and_compute_batch(_as_images(image, device)[None],
-                                    plan)[0]
+    """Features of one [H, W] image (float in [0, 1], or raw 0..255 with
+    ``fixed``)."""
+    return detect_and_compute_batch(_as_images(image, device, fixed)[None],
+                                    plan, fixed=fixed)[0]
 
 
 def detect_and_compute_pair(image_a, image_b, plan: PipelinePlan, *,
-                            device=None):
+                            fixed: bool = False, device=None):
     """Features of both images of a matching pair, batched: 16 K1 launches
     and one K2 launch for the pair.  Returns (features_a, features_b)."""
-    a = _as_images(image_a, device)
-    b = _as_images(image_b, a.device)
+    a = _as_images(image_a, device, fixed)
+    b = _as_images(image_b, a.device, fixed)
     if a.shape != b.shape:
         raise ValueError("pair batching needs equal shapes")
-    fa, fb = detect_and_compute_batch(torch.stack([a, b]), plan)
+    fa, fb = detect_and_compute_batch(torch.stack([a, b]), plan,
+                                      fixed=fixed)
     return fa, fb
 
 
 class Akaze:
-    """Plans cached per image shape; every tensor on ``device``."""
+    """Plans cached per image shape; every tensor on ``device``.
+
+    ``fixed=True``: the 16.16 fixed-point path; images are raw 0..255
+    (as the reference's demo feeds its fast path, main.cpp:257-258)."""
 
     def __init__(self, config: Optional[AkazeConfig] = None,
-                 device="cpu"):
+                 fixed: bool = False, device="cpu"):
         self.config = config or AkazeConfig()
+        self.fixed = fixed
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is "
@@ -112,14 +128,17 @@ class Akaze:
         return self._plans[key]
 
     def detect_and_compute(self, image) -> Features:
-        """image: [H, W] float in [0, 1] (numpy or tensor)."""
-        x = _as_images(image, self.device)
-        return detect_and_compute(x, self.plan_for(*x.shape))
+        """image: [H, W] (numpy or tensor), float in [0, 1], or raw 0..255
+        on the fixed path."""
+        x = _as_images(image, self.device, self.fixed)
+        return detect_and_compute(x, self.plan_for(*x.shape),
+                                  fixed=self.fixed)
 
     def detect_and_compute_pair(self, image_a, image_b):
         """Both images of a pair in one batch.  Returns (fa, fb)."""
-        a = _as_images(image_a, self.device)
-        return detect_and_compute_pair(a, image_b, self.plan_for(*a.shape))
+        a = _as_images(image_a, self.device, self.fixed)
+        return detect_and_compute_pair(a, image_b, self.plan_for(*a.shape),
+                                       fixed=self.fixed)
 
     def match(self, f1: Features, f2: Features,
               max_dist: Optional[int] = None) -> Matches:

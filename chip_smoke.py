@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on
 any disagreement:
 
   1. the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build the three CUDA kernels from ``akaze_tpu_torch/csrc`` (nvcc);
+  2. build the CUDA kernels from ``akaze_tpu_torch/csrc`` (nvcc);
   3. K1 (fused sublevel) against its plain version for all 16 sublevels of
      the 960x1280 plan, B = 2: L/Lx/Ly within 1e-5 of each plane's max,
      det on the interior;
@@ -22,7 +22,15 @@ any disagreement:
      must be recovered with an inlier fraction > 0.85; a small pair must
      agree with the CPU plain pipeline;
   7. timings with CUDA events: the pair iteration (median of 20 after
-     warm-up), its stages, and each kernel against its plain version.
+     warm-up), its stages, and each kernel against its plain version;
+  8. the 16.16 fixed-point path (``Akaze(..., fixed=True)``) on the pair
+     quantised to raw 0..255: K1's fixed flavour against its plain version
+     on all 16 sublevels, bit-exact (det on the interior); K2's exact fixed
+     flavour on the fixed pair's keypoints, 0 flipped bits; the main path
+     for both descriptor flavours (exact, ``fixed_exact_sampling=True``,
+     and approximate, the default), each with its launch counters reset
+     before and read after, the shift recovered; a small pair of each
+     flavour against the CPU plain pipeline; and the same timings.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -96,23 +104,30 @@ def synthetic_texture(h: int, w: int, seed: int) -> np.ndarray:
 
 
 def load_pair(stock_dir):
-    """(image_a, image_b, description, known shift or None)."""
+    """(float pair in [0, 1], raw 0..255 uint8 pair for the fixed path,
+    description, known shift or None)."""
     if stock_dir:
         from akaze_tpu_torch.io import load_pgm
         left = os.path.join(stock_dir, "left.pgm")
         right = os.path.join(stock_dir, "right.pgm")
         if os.path.exists(left) and os.path.exists(right):
-            a = load_pgm(left).astype(np.float32) / 255.0
-            b = load_pgm(right).astype(np.float32) / 255.0
-            check(a.shape == (H, W) and b.shape == (H, W),
-                  f"stock pair must be {H}x{W}, got {a.shape}, {b.shape}")
-            return a, b, f"stock pair from {stock_dir}", None
+            raw = (load_pgm(left), load_pgm(right))
+            check(all(r.shape == (H, W) for r in raw),
+                  f"stock pair must be {H}x{W}")
+            return (tuple(r.astype(np.float32) / 255.0 for r in raw), raw,
+                    f"stock pair from {stock_dir}", None)
         print(f"no stock pair under {stock_dir}; using the synthetic pair")
     dy, dx = SHIFT
     tex = synthetic_texture(H + dy, W + dx, SEED)
-    return (tex[:H, :W].copy(), tex[dy:, dx:].copy(),
+    pair = (tex[:H, :W].copy(), tex[dy:, dx:].copy())
+    return (pair, tuple(quantise(x) for x in pair),
             f"synthetic seed {SEED}, B = A shifted by (dy, dx) = {SHIFT}",
             SHIFT)
+
+
+def quantise(x: np.ndarray) -> np.ndarray:
+    """A texture in [0, 1] as raw 0..255, the fixed path's input."""
+    return (x * 255).astype(np.uint8)
 
 
 # --------------------------------------------------------------------------
@@ -173,7 +188,8 @@ def phase_build():
     print(f"[build] {info['seconds']:.2f} s (cached={info['cached']}) "
           f"-> {os.path.relpath(info['path'])}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("Function properties", "registers",
+                                   "spill")):
             print("[build]", line.strip())
 
 
@@ -201,37 +217,56 @@ def record_sublevels(images, plan):
     return [(name, args, kw) for name, (args, kw) in zip(names, calls)]
 
 
-def phase_k1(torch, images, plan):
+def phase_k1(torch, images, plan, tag="K1"):
+    """K1 against its plain version on every sublevel of the pair's scale
+    space.  int32 images take the fixed flavour, held bit-exact."""
     from akaze_tpu_torch.ops.sublevel import sublevel, sublevel_plain
 
+    fixed = images.dtype == torch.int32
+    tol = 0.0 if fixed else TOL
     calls = record_sublevels(images, plan)
-    worst_rel, worst_abs, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    worst_rel, worst_abs, ms, plain_ms, ms1, plain_ms1 = (0.0,) * 6
     for name, args, kw in calls:
+        check(kw["fixed"] == fixed, f"{tag} {name}: flavour")
         got = sublevel(*args, **kw)
         want = sublevel_plain(*args, **kw)
         torch.cuda.synchronize()
         step = args[3]
         for pname, g, w in zip(("L", "det", "lx", "ly"), got, want):
-            rel, ab = rel_err(torch, g, w, 2 * step + 2 if pname == "det"
-                              else 0)
-            check(rel <= TOL, f"K1 {name} {pname}: rel err {rel:.3g}")
+            check(g.dtype == w.dtype == images.dtype, f"{tag} {name} type")
+            rel, ab = rel_err(torch, g.double(), w.double(),
+                              2 * step + 2 if pname == "det" else 0)
+            check(rel <= tol, f"{tag} {name} {pname}: rel err {rel:.3g}")
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
         ms += cuda_ms(torch, lambda: sublevel(*args, **kw))
         plain_ms += cuda_ms(torch, lambda: sublevel_plain(*args, **kw))
-    print(f"[K1] {len(calls)} sublevels x B=2 agree: max rel err "
+        # B = 1, the single-image form (fused_sublevel of the JAX package)
+        args1 = tuple(a[:1] if isinstance(a, torch.Tensor) else a
+                      for a in args)
+        kw1 = {k: v[:1] if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        ms1 += cuda_ms(torch, lambda: sublevel(*args1, **kw1))
+        plain_ms1 += cuda_ms(torch, lambda: sublevel_plain(*args1, **kw1))
+    print(f"[{tag}] {len(calls)} sublevels x B=2 agree: max rel err "
           f"{worst_rel:.3g} (abs {worst_abs:.3g}); per pair {ms:.3f} ms "
-          f"vs plain {plain_ms:.3f} ms")
+          f"vs plain {plain_ms:.3f} ms; B=1 per image {ms1:.3f} ms vs "
+          f"plain {plain_ms1:.3f} ms")
     return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
 
 
-def phase_k2(torch, images, plan):
-    from akaze_tpu_torch.descriptor import (finish_descriptors, slot_params,
-                                            words_to_numpy)
+def phase_k2(torch, images, plan, fixed=False, tag="K2"):
+    """K2 against its plain version on the pair's keypoints and pyramid;
+    ``fixed``: the fixed path's exact flavour (``plan`` must select it)."""
+    from akaze_tpu_torch.descriptor import (finish_descriptors, plane_dtype,
+                                            slot_params, words_to_numpy)
     from akaze_tpu_torch.ops.describe import (describe, describe_plain,
                                               describe_tables)
     from akaze_tpu_torch.pipeline import detect_batch
 
-    kps, pp = detect_batch(images, plan)
+    check(plane_dtype(plan, fixed) == (torch.float32 if fixed
+                                       else torch.bfloat16),
+          f"{tag}: the configuration selects another flavour")
+    kps, pp = detect_batch(images, plan, fixed=fixed)
     nplanes = pp.L.shape[0] // 2
     params = [slot_params(k, pp, plan, plane_base=i * nplanes,
                           nplanes=nplanes) for i, k in enumerate(kps)]
@@ -239,8 +274,8 @@ def phase_k2(torch, images, plan):
     fp = torch.cat([p[1] for p in params])
     planes = (pp.L, pp.lx, pp.ly)
     tables = describe_tables(plan.config.descriptor_pattern_size, ip.device)
-    a1, c1 = describe(ip, fp, planes, tables)
-    a2, c2 = describe_plain(ip, fp, planes, tables)
+    a1, c1 = describe(ip, fp, planes, tables, fixed)
+    a2, c2 = describe_plain(ip, fp, planes, tables, fixed)
     torch.cuda.synchronize()
     d = (a1 - a2).abs()
     d = torch.minimum(d, 2 * math.pi - d)
@@ -252,16 +287,17 @@ def phase_k2(torch, images, plan):
     n_live = int(live.sum())
     angle_err = float(d.max())
     acc_err = float((c1 - c2).abs().max())
-    print(f"[K2] {n_live} live slots of {ip.shape[0]}: max angle err "
+    print(f"[{tag}] {n_live} live slots of {ip.shape[0]}: max angle err "
           f"{angle_err:.3g} rad, max cell-sum err {acc_err:.3g}, flipped "
           f"bits max {int(flips.max()) if n_live else 0} mean "
           f"{float(flips.mean()) if n_live else 0.0:.4f}")
-    check(n_live > 100, f"too few keypoints for K2: {n_live}")
-    check(angle_err < 1e-3, f"K2 angle err {angle_err}")
-    check(int(flips.max()) == 0, f"K2 flipped bits: max {flips.max()}")
-    ms = cuda_ms(torch, lambda: describe(ip, fp, planes, tables))
-    plain_ms = cuda_ms(torch, lambda: describe_plain(ip, fp, planes, tables))
-    print(f"[K2] {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    check(n_live > 100, f"too few keypoints for {tag}: {n_live}")
+    check(angle_err < 1e-3, f"{tag} angle err {angle_err}")
+    check(int(flips.max()) == 0, f"{tag} flipped bits: max {flips.max()}")
+    ms = cuda_ms(torch, lambda: describe(ip, fp, planes, tables, fixed))
+    plain_ms = cuda_ms(torch, lambda: describe_plain(ip, fp, planes, tables,
+                                                     fixed))
+    print(f"[{tag}] {ms:.3f} ms vs plain {plain_ms:.3f} ms")
     return dict(max_abs_err=max(angle_err, acc_err), ms=ms,
                 plain_ms=plain_ms)
 
@@ -314,7 +350,7 @@ def counters():
             "hamming": hamming_top2}
 
 
-def phase_main(torch, det, a, b, shift):
+def phase_main(torch, det, a, b, shift, tag="main"):
     n_sub = sum(len(o.scales) for o in det.plan_for(H, W).octaves)
     for fn in counters().values():
         fn.launches = 0
@@ -322,7 +358,7 @@ def phase_main(torch, det, a, b, shift):
     m = det.match(fa, fb)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
-    print(f"[main] launches {launches}")
+    print(f"[{tag}] launches {launches}")
     check(launches == {"sublevel": n_sub, "describe": 1, "hamming": 1},
           f"main path launches {launches}")
 
@@ -336,16 +372,17 @@ def phase_main(torch, det, a, b, shift):
     acc = (m.index[:n] >= 0).cpu().numpy()
     dx = (m.match_x[:n] - fa.x[:n]).cpu().numpy()[acc]
     dy = (m.match_y[:n] - fa.y[:n]).cpu().numpy()[acc]
-    print(f"[main] counts {n}, {int(fb.count)}; overflow "
+    print(f"[{tag}] counts {n}, {int(fb.count)}; overflow "
           f"{bool(fa.overflow)}, {bool(fb.overflow)}; accepted "
           f"{int(acc.sum())}")
     check(n > 500 and int(fb.count) > 500, "too few keypoints")
     if shift is None:
-        print(f"[main] median (dx, dy) = ({np.median(dx)}, {np.median(dy)})")
+        print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, "
+              f"{np.median(dy)})")
         check(acc.sum() > 100, "too few accepted matches")
         return launches
     inl = (np.abs(dx + shift[1]) < 1.5) & (np.abs(dy + shift[0]) < 1.5)
-    print(f"[main] median (dx, dy) = ({np.median(dx)}, {np.median(dy)}); "
+    print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, {np.median(dy)}); "
           f"inlier fraction {inl.mean():.4f}")
     check(acc.sum() > 100, "too few accepted matches")
     check(np.median(dx) == -shift[1] and np.median(dy) == -shift[0],
@@ -354,18 +391,23 @@ def phase_main(torch, det, a, b, shift):
     return launches
 
 
-def phase_small_reference(torch, dev):
-    """The card's pipeline against the CPU plain pipeline on a small pair."""
+def phase_small_reference(torch, dev, fixed=False, exact=False,
+                          tag="check"):
+    """The card's pipeline against the CPU plain pipeline on a small pair
+    (``fixed``: the fixed path on the pair quantised to raw 0..255, with the
+    ``exact`` or the approximate descriptor)."""
     from akaze_tpu_torch import Akaze, AkazeConfig
     from akaze_tpu_torch.descriptor import words_to_numpy
 
     tex = synthetic_texture(240 + SHIFT[0], 320 + SHIFT[1], SEED + 1)
     a = tex[:240, :320].copy()
     b = tex[SHIFT[0]:, SHIFT[1]:].copy()
-    cfg = AkazeConfig(max_pts=2000, noctaves=2)
+    if fixed:
+        a, b = quantise(a), quantise(b)
+    cfg = AkazeConfig(max_pts=2000, noctaves=2, fixed_exact_sampling=exact)
     outs = {}
     for d in ("cpu", dev):
-        det = Akaze(cfg, device=d)
+        det = Akaze(cfg, fixed=fixed, device=d)
         fa, fb = det.detect_and_compute_pair(a, b)
         outs[str(d)] = (fa, fb, det.match(fa, fb))
     (ca, cb, cm), (ga, gb, gm) = outs["cpu"], outs[str(dev)]
@@ -375,19 +417,21 @@ def phase_small_reference(torch, dev):
         check(bool(torch.equal(c.layer, g.layer.cpu())), "small pair: layer")
         xy = max(float((c.x - g.x.cpu()).abs().max()),
                  float((c.y - g.y.cpu()).abs().max()))
-        check(xy < 1e-4, f"small pair: x/y differ by {xy}")
+        # the fixed path's det planes are integers, equal on both sides
+        check(xy == 0 if fixed else xy < 1e-4,
+              f"small pair: x/y differ by {xy}")
         flips = np.unpackbits((words_to_numpy(c.words)[:n]
                                ^ words_to_numpy(g.words)[:n]).view(np.uint8),
                               axis=1).sum()
         check(flips == 0, f"small pair: {flips} flipped bits")
     check(bool(torch.equal(cm.index, gm.index.cpu())),
           "small pair: matches differ")
-    print(f"[check] 240x320 pair on the card equals the CPU plain pipeline "
+    print(f"[{tag}] 240x320 pair on the card equals the CPU plain pipeline "
           f"({int(ca.count)}, {int(cb.count)} keypoints, "
           f"{int((cm.index >= 0).sum())} matches)")
 
 
-def phase_timing(torch, det, a, b):
+def phase_timing(torch, det, a, b, tag="time"):
     from akaze_tpu_torch.descriptor import orient_describe_multi
     from akaze_tpu_torch.match import match
     from akaze_tpu_torch.pipeline import detect_batch
@@ -407,9 +451,9 @@ def phase_timing(torch, det, a, b):
     for _ in range(REPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        kps, pp = detect_batch(images, plan)
+        kps, pp = detect_batch(images, plan, fixed=det.fixed)
         ev[1].record()
-        out = orient_describe_multi(kps, pp, plan)
+        out = orient_describe_multi(kps, pp, plan, det.fixed)
         ev[2].record()
         match(out[0][1], kps[0].valid, out[1][1], kps[1].valid, kps[1].x,
               kps[1].y, plan.config.max_dist)
@@ -417,10 +461,10 @@ def phase_timing(torch, det, a, b):
         ev[3].synchronize()
         for k, (s, e) in zip(stages, zip(ev[:-1], ev[1:])):
             stages[k].append(s.elapsed_time(e))
-    print(f"[time] pair iteration (detect + describe + match, 960x1280, "
+    print(f"[{tag}] pair iteration (detect + describe + match, 960x1280, "
           f"max_pts={MAX_PTS}): median {pair_ms:.3f} ms of {REPS}")
     for k, v in stages.items():
-        print(f"[time]   {k}: median {float(np.median(v)):.3f} ms")
+        print(f"[{tag}]   {k}: median {float(np.median(v)):.3f} ms")
     return pair_ms
 
 
@@ -448,7 +492,7 @@ def main() -> int:
 
     card = phase_device(torch)
     phase_build()
-    a, b, desc, shift = load_pair(args.stock_dir)
+    (a, b), (a8, b8), desc, shift = load_pair(args.stock_dir)
     print(f"[pair] {desc}")
 
     from akaze_tpu_torch import Akaze, AkazeConfig
@@ -465,11 +509,40 @@ def main() -> int:
     pair_ms = phase_timing(torch, det, a, b)
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
 
+    # the 16.16 fixed-point path, both descriptor flavours
+    exact = Akaze(AkazeConfig(max_pts=MAX_PTS, fixed_exact_sampling=True),
+                  fixed=True, device=dev)
+    approx = Akaze(AkazeConfig(max_pts=MAX_PTS), fixed=True, device=dev)
+    plan_fx = exact.plan_for(H, W)
+    images_fx = torch.stack([torch.as_tensor(x, device=dev).int()
+                             for x in (a8, b8)])
+    k1_fx = phase_k1(torch, images_fx, plan_fx, tag="K1 fixed")
+    k2_fx = phase_k2(torch, images_fx, plan_fx, fixed=True, tag="K2 fixed")
+    launches_fx = phase_main(torch, exact, a8, b8, shift,
+                             tag="main fixed exact")
+    launches_ap = phase_main(torch, approx, a8, b8, shift,
+                             tag="main fixed approximate")
+    phase_small_reference(torch, dev, fixed=True, exact=True,
+                          tag="check fixed exact")
+    phase_small_reference(torch, dev, fixed=True,
+                          tag="check fixed approximate")
+    fx_ms = phase_timing(torch, exact, a8, b8, tag="time fixed exact")
+    ap_ms = phase_timing(torch, approx, a8, b8, tag="time fixed approximate")
+    print(f"[time] card: {card}; fixed pair iteration {fx_ms:.3f} ms "
+          f"(exact), {ap_ms:.3f} ms (approximate)")
+
+    k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
+              "akaze_tpu/ops/pallas_describe.py:579")
     rows = [
         ("sublevel_kernel", "akaze_tpu_torch/csrc/sublevel.cu",
          "akaze_tpu/ops/pallas_sublevel.py:423", launches["sublevel"], k1),
-        ("describe_kernel", "akaze_tpu_torch/csrc/describe.cu",
-         "akaze_tpu/ops/pallas_describe.py:1107", launches["describe"], k2),
+        ("sublevel_kernel_fixed", "akaze_tpu_torch/csrc/sublevel.cu",
+         "akaze_tpu/ops/pallas_sublevel.py:423", launches_fx["sublevel"],
+         k1_fx),
+        ("describe_kernel", "akaze_tpu_torch/csrc/describe.cu", k2_rep,
+         launches["describe"], k2),
+        ("describe_kernel_fixed", "akaze_tpu_torch/csrc/describe.cu", k2_rep,
+         launches_fx["describe"], k2_fx),
         ("hamming_kernel", "akaze_tpu_torch/csrc/hamming.cu",
          "akaze_tpu/ops/pallas_match.py:103", launches["hamming"], k4),
     ]

@@ -8,7 +8,13 @@ machine without them:
 
 Tolerances: K1 planes within 1e-5 of each plane's max (det on the
 interior, see test_torch_sublevel.py); K2 angles within 1e-3 rad and 0
-flipped descriptor bits; K4 and ``Matches`` exactly.
+flipped descriptor bits; K4 and ``Matches`` exactly.  The 16.16 fixed
+flavours are integer arithmetic and are held exactly: K1's planes (det on
+the interior) against its plain version run on the card, for every
+diffusivity (the kernel's ``expf`` is PyTorch's CUDA ``exp`` bit for bit;
+PyTorch's CPU ``exp`` is not, so PM_G1 and WEICKERT are compared on one
+device), and the fixed pipeline's keypoints, words and ``Matches`` against
+the CPU plain pipeline (PM_G2).
 """
 
 import numpy as np
@@ -24,7 +30,7 @@ from akaze_tpu_torch.detect import build_padded_pyramid, detect_keypoints
 from akaze_tpu_torch.ops import describe as k2
 from akaze_tpu_torch.ops import hamming as k4
 from akaze_tpu_torch.ops import sublevel as k1
-from akaze_tpu_torch.ops.conv import lowpass
+from akaze_tpu_torch.ops.conv import lowpass, lowpass_fixed
 from akaze_tpu_torch.scale_space import OctaveData, build_scale_space
 
 TOL = 1e-5
@@ -56,6 +62,11 @@ def pair(h=256, w=320):
     dy, dx = SHIFT
     t = texture(h + dy, w + dx)
     return t[:h, :w].copy(), t[dy:, dx:].copy()
+
+
+def raw_pair(h=256, w=320):
+    """The textured pair quantised to raw 0..255, the fixed path's input."""
+    return tuple((x * 255).astype(np.uint8) for x in pair(h, w))
 
 
 def bit_flips(w1, w2):
@@ -105,6 +116,33 @@ def assert_planes_close(got, want, step, names=("L", "det", "lx", "ly")):
             g, w = g[..., m:-m, m:-m], w[..., m:-m, m:-m]
         scale = max(float(w.abs().max()), 1e-6)
         assert float((g - w).abs().max()) <= TOL * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diffusivity", list(Diffusivity))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fixed_sublevel_kernel_matches_plain(cuda, case, diffusivity):
+    src = torch.from_numpy(np.stack(raw_pair(120, 160)).astype(np.int32))
+    ikc = 1.0 / torch.tensor([37 * 37, 52 * 52], dtype=torch.int32).float()
+    kw = dict(CASES[case])
+    taus, step = kw.pop("taus"), kw.pop("step")
+    smooth = (lowpass_fixed(src, 1.0, 5).to(cuda) if kw.pop("smooth", False)
+              else None)
+    args = (src.to(cuda), ikc.to(cuda), taus, step)
+    kw.update(smooth=smooth, diffusivity=diffusivity, fixed=True)
+    want = k1.sublevel_plain(*args, **kw)
+    before = k1.sublevel.launches
+    got = k1.sublevel(*args, **kw)
+    torch.cuda.synchronize()
+    n = len(k1.chain_launches(taus, step, kw.get("smooth_radius", 2)))
+    assert k1.sublevel.launches == before + n
+    m = 2 * step + 2
+    for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+        assert g.dtype == torch.int32, name
+        d = (g.long() - w.long()).abs()
+        if name == "det":
+            d = d[..., m:-m, m:-m]
+        assert int(d.max()) == 0, (name, int(d.max()), int((d > 0).sum()))
 
 
 @pytest.mark.cuda
@@ -211,6 +249,39 @@ def test_describe_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_fixed_describe_kernel_matches_plain(cuda):
+    """The exact fixed flavour on f32 planes of the fixed scale space."""
+    plan = build_plan(256, 320, AkazeConfig(max_pts=512, noctaves=2,
+                                            fixed_exact_sampling=True))
+    images = torch.from_numpy(np.stack(raw_pair()).astype(np.int32))
+    octs, _ = build_scale_space(images, plan)
+    per_image = [[OctaveData(*(p[i] for p in o)) for o in octs]
+                 for i in range(2)]
+    kps = [detect_keypoints(o, plan) for o in per_image]
+    pp = build_padded_pyramid([o for img in per_image for o in img], WSIZE,
+                              torch.float32)
+    nplanes = pp.L.shape[0] // 2
+    params = [slot_params(k, pp, plan, plane_base=i * nplanes,
+                          nplanes=nplanes) for i, k in enumerate(kps)]
+    ip = torch.cat([p[0] for p in params])
+    fp = torch.cat([p[1] for p in params])
+    assert int(ip[:, 6].sum()) > 20
+    planes = (pp.L, pp.lx, pp.ly)
+    want = k2.describe_plain(ip, fp, planes, k2.describe_tables(10, ip.device),
+                             fixed=True)
+    before = k2.describe.launches
+    got = k2.describe(ip.to(cuda), fp.to(cuda),
+                      tuple(p.to(cuda) for p in planes),
+                      k2.describe_tables(10, cuda), fixed=True)
+    torch.cuda.synchronize()
+    assert k2.describe.launches == before + 1
+    d = (got[0].cpu() - want[0]).abs()
+    assert float(torch.minimum(d, 2 * np.pi - d).max()) < 1e-3
+    assert bit_flips(finish_descriptors(got[1]),
+                     finish_descriptors(want[1])).max() == 0
+
+
+@pytest.mark.cuda
 def test_hamming_kernel_matches_plain(cuda):
     rng = np.random.default_rng(6)
     n1, n2 = 1000, 1500
@@ -265,6 +336,36 @@ def test_pipeline_on_card_matches_cpu(cuda):
         assert torch.equal(c.layer, g.layer.cpu())
         assert float((c.x - g.x.cpu()).abs().max()) < 1e-4
         assert float((c.y - g.y.cpu()).abs().max()) < 1e-4
+        assert bit_flips(c.words[:n], g.words[:n]).max() == 0
+    assert torch.equal(cm.index, gm.index.cpu())
+    n = int(ga.count)
+    acc = gm.index[:n] >= 0
+    dx = (gm.match_x[:n] - ga.x[:n])[acc].cpu().numpy()
+    assert acc.sum() > 20 and np.median(dx) == -SHIFT[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_fixed_pipeline_on_card_matches_cpu(cuda, exact):
+    """The fixed pair path, exact and approximate descriptor flavours: the
+    card's keypoints, words and matches equal the CPU plain pipeline's."""
+    a, b = raw_pair()
+    cfg = AkazeConfig(max_pts=512, noctaves=2, fixed_exact_sampling=exact)
+    cpu = Akaze(cfg, fixed=True, device="cpu")
+    ca, cb = cpu.detect_and_compute_pair(a, b)
+    cm = cpu.match(ca, cb)
+    counters = (k1.sublevel, k2.describe, k4.hamming_top2)
+    before = [c.launches for c in counters]
+    gpu = Akaze(cfg, fixed=True, device=cuda)
+    ga, gb = gpu.detect_and_compute_pair(a, b)
+    gm = gpu.match(ga, gb)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [8, 1, 1]
+    for c, g in ((ca, ga), (cb, gb)):
+        n = int(c.count)
+        assert int(g.count) == n > 20
+        for name in ("layer", "x", "y", "response"):
+            assert torch.equal(getattr(c, name), getattr(g, name).cpu()), name
         assert bit_flips(c.words[:n], g.words[:n]).max() == 0
     assert torch.equal(cm.index, gm.index.cpu())
     n = int(ga.count)

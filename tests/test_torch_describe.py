@@ -9,6 +9,11 @@ hold equal to the Pallas kernel (0 flipped bits on the test image,
 tests/test_pallas_descriptor.py); the pair pipeline test holds the port
 against the Pallas kernel itself in interpret mode.
 
+The fixed path's exact flavour (f32 planes) is held to the JAX package's
+XLA fixed descriptor, and ``banded_windows=False`` to the JAX package's
+private-window kernel (K3) in interpret mode, which the port serves with
+K2.
+
 Tolerances: angle within 1e-3 rad (circular), descriptor words exactly (0
 flipped bits), static tables exactly.  On the CPU the port's ``describe``
 runs its plain version; tests/test_torch_cuda.py holds the CUDA kernel to
@@ -25,6 +30,7 @@ import torch
 from akaze_tpu import AkazeConfig as JConfig
 from akaze_tpu import descriptor as jdesc
 from akaze_tpu.detect import Keypoints as JKeypoints
+from akaze_tpu.detect import PaddedPyramid as JPaddedPyramid
 from akaze_tpu.detect import build_padded_pyramid as jpadded
 from akaze_tpu.ops import pallas_describe as jpd
 from akaze_tpu.plan import build_plan as jbuild_plan
@@ -172,3 +178,124 @@ def test_describe_rejects_bad_input(described):
     with pytest.raises(ValueError):
         tdescribe.describe(ip, fp[:-1], planes, tables)
 
+
+
+# --------------------------------------------------------------------------
+# the fixed path's exact flavour, and K3 (banded_windows=False)
+# --------------------------------------------------------------------------
+
+def _raw(test_image):
+    """The whole blob image as raw 0..255 and a rolled copy: the fixed
+    threshold keeps fewer keypoints than the float one on a crop."""
+    a = (test_image * 255).astype(np.uint8).astype(np.int32)
+    return a, np.roll(a, (5, 9), axis=(0, 1))
+
+
+@pytest.fixture(scope="module")
+def described_fixed(test_image):
+    """The port's fixed scale space and keypoints of a raw pair, its f32
+    pyramid and exact descriptors; the JAX package's XLA fixed descriptor
+    of those keypoints on the same planes (int32, as its XLA path takes
+    them).  Its own tests hold that path bit-equal to its exact kernel
+    (tests/test_pallas_descriptor.py:143)."""
+    images = _raw(test_image)
+    jcfg = JConfig(max_pts=256, noctaves=2, fixed_exact_sampling=True)
+    jplan = jbuild_plan(*images[0].shape, jcfg)
+    plan = build_plan(*images[0].shape, config_from(dataclasses.asdict(jcfg)))
+    ref, kps_t, octs_t = [], [], []
+    for img in images:
+        octs, _ = build_scale_space(torch.from_numpy(img), plan)
+        kps = detect_keypoints(octs, plan)
+        jkps = _to_jax(kps, JKeypoints)
+        pp = jpadded([_to_jax(o, JOctaveData) for o in octs], jdesc.WSIZE)
+        wnd = jdesc.extract_windows(jkps, pp, jplan)
+        angle = jdesc.compute_orientation(jkps, wnd, jplan, fixed=True)
+        words = jdesc.compute_descriptors(jkps, angle, wnd, jplan,
+                                          fixed=True).words
+        ref.append((int(kps.count), np.asarray(angle), np.asarray(words)))
+        kps_t.append(kps)
+        octs_t += octs
+    assert tdesc.plane_dtype(plan, True) == torch.float32
+    pp = build_padded_pyramid(octs_t, tdesc.WSIZE, torch.float32)
+    tdescribe.describe.launches = 0
+    got = tdesc.orient_describe_multi(kps_t, pp, plan, fixed=True)
+    return ref, got, kps_t, pp, plan
+
+
+def test_fixed_descriptor_matches_jax(described_fixed):
+    ref, got, _, _, _ = described_fixed
+    for (n, angle, words), (t_angle, t_words) in zip(ref, got):
+        assert n > 10
+        assert (circular(t_angle.numpy()[:n], angle[:n]) < 1e-3).all()
+        flips = bit_flips(tdesc.words_to_numpy(t_words)[:n], words[:n])
+        assert flips.max() == 0, (flips.max(), (flips > 0).sum())
+        assert (t_words.numpy()[n:] == 0).all()
+    assert tdescribe.describe.launches == 0
+
+
+def test_fixed_flavour_differs_from_float(described_fixed):
+    """The exact flavour is not the float one on the same planes: its
+    integer cell sums tie where the float sums are rotated."""
+    _, _, kps_t, pp, plan = described_fixed
+    ip, fp = tdesc.slot_params(kps_t[0], pp, plan)
+    tables = tdescribe.describe_tables(10, ip.device)
+    planes = (pp.L, pp.lx, pp.ly)
+    _, exact = tdescribe.describe(ip, fp, planes, tables, fixed=True)
+    _, flt = tdescribe.describe_plain(ip, fp, planes, tables)
+    n = int(kps_t[0].count)
+    assert (exact[:n] == exact[:n].round()).all()
+    assert not torch.equal(exact[:n], flt[:n])
+    with pytest.raises(TypeError):   # the flavour follows the planes' type
+        tdescribe.describe(ip, fp, planes, tables)
+
+
+def _private_window_kernel(kps_t, pp, plan, fixed):
+    """The JAX package's K3 (``orient_describe``, one private window per
+    keypoint) in interpret mode on the live slots of both images, fed the
+    port's keypoints and planes.  kb = 1: outputs are per keypoint, and a
+    one-keypoint body compiles in about a second."""
+    from akaze_tpu.ops.pallas_describe import orient_describe
+
+    jplan = jbuild_plan(plan.height, plan.width,
+                        JConfig(**dataclasses.asdict(plan.config)))
+    dtype = jnp.float32 if fixed else jnp.bfloat16
+    jpp = JPaddedPyramid(*(jnp.asarray(v.float().numpy()) for v in pp[:3]),
+                         *(jnp.asarray(v.numpy()) for v in pp[3:]))
+    nplanes = pp.L.shape[0] // len(kps_t)
+    ips, fps = [], []
+    for i, k in enumerate(kps_t):
+        n = int(k.count)
+        ip, fp = jdesc._band_kp_params(_to_jax(k, JKeypoints), jpp, jplan,
+                                       120, 128, plane_base=i * nplanes,
+                                       nplanes=nplanes)
+        ips.append(ip[:n].at[:, 6].set(1))
+        fps.append(fp[:n])
+    planes = jdesc._padded_band_pyramid(jpp, 128, 256, dtype=dtype)
+    angle, acc = orient_describe(jnp.concatenate(ips), jnp.concatenate(fps),
+                                 planes, kb=1, interpret=True, wy=128,
+                                 wx=256, fixed=fixed)
+    _, desc = jdesc._finish_descriptors(angle, acc)
+    return np.asarray(angle), np.asarray(desc.words)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_private_window_kernel_k3_served_by_k2(described, described_fixed,
+                                               fixed):
+    """``banded_windows=False`` selects the JAX package's K3; the port
+    serves it with K2, and its results equal K3's (float flavour on bf16
+    planes, and the fixed path's exact flavour on f32 planes)."""
+    _, _, kps_t, pp, plan = described_fixed if fixed else described
+    plan = dataclasses.replace(plan, config=dataclasses.replace(
+        plan.config, banded_windows=False))
+    got = tdesc.orient_describe_multi(kps_t, pp, plan, fixed=fixed)
+    angle, words = _private_window_kernel(kps_t, pp, plan, fixed)
+    off = 0
+    for k, (t_angle, t_words) in zip(kps_t, got):
+        n = int(k.count)
+        assert n > 10
+        assert (circular(t_angle.numpy()[:n], angle[off:off + n])
+                < 1e-3).all()
+        flips = bit_flips(tdesc.words_to_numpy(t_words)[:n],
+                          words[off:off + n])
+        assert flips.max() == 0, (flips.max(), (flips > 0).sum())
+        off += n

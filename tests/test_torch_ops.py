@@ -3,7 +3,9 @@ JAX package on the same seeded inputs.
 
 Tolerances: ops and planes within 1e-5 of the plane's max |value| (the
 two frameworks may order or contract float operations differently);
-kcontrast within a relative 1e-6; static plans and tables exactly.
+kcontrast within a relative 1e-6; static plans and tables exactly.  The
+16.16 fixed-point ops are integer planes and are held bit-exact, to the
+JAX package and to tests/golden.py.
 """
 
 import dataclasses
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import golden
 from akaze_tpu import config as jcfg
 from akaze_tpu import fed as jfed
 from akaze_tpu import plan as jplan
@@ -86,7 +89,7 @@ def test_config_fields_and_config_from():
 
 @pytest.mark.parametrize("field, value, refused", [
     ("bf16_sampling", False, True),        # would change the descriptors
-    ("fixed_exact_sampling", True, True),  # the port has no fixed path
+    ("fixed_exact_sampling", True, False),  # the exact fixed descriptor
     ("pallas_descriptor", "off", False),   # kernel selectors: compatibility
     ("banded_windows", False, False),
 ])
@@ -201,3 +204,107 @@ def test_percentile_contrast(test_image, planes):
     for i, m in enumerate(mags):
         want = float(jcontrast.percentile_contrast(jnp.asarray(m), 0.7))
         assert abs(float(got[i]) - want) <= 1e-6 * want
+
+
+# --------------------------------------------------------------------------
+# 16.16 fixed-point ops: bit-exact against the JAX package and tests/golden
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def raw(test_image):
+    """The blob test image quantised to raw 0..255 int32, the fixed path's
+    input."""
+    return (test_image * 255).astype(np.uint8).astype(np.int32)
+
+
+def assert_equal(got, want, err_msg=""):
+    np.testing.assert_array_equal(
+        got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got),
+        np.asarray(want), err_msg=err_msg)
+
+
+@pytest.mark.parametrize("var,ksz", [(1.0, 5), (2.56, 9), (1.7, 7)])
+def test_lowpass_fixed(raw, var, ksz):
+    r = tconv.radius_for_ksize(ksz)
+    taps = tconv.gauss_half_kernel_fixed(var, r)
+    assert taps == jconv.gauss_half_kernel_fixed(var, r)
+    x = raw[:97, :131]
+    got = tconv.lowpass_fixed(torch.from_numpy(x), var, ksz)
+    assert got.dtype == torch.int32
+    assert_equal(got, jconv.lowpass_fixed(jnp.asarray(x), var, ksz))
+    assert_equal(got, golden.sep_conv2d_fixed(x, taps))
+
+
+def test_down_with_smooth_fixed(raw):
+    for x in (raw[:97, :131], raw[:186, :250]):
+        d_t, s_t = tconv.down_with_smooth_fixed(torch.from_numpy(x))
+        d_j, s_j = jconv.down_with_smooth_fixed(jnp.asarray(x))
+        assert_equal(d_t, d_j)
+        assert_equal(s_t, s_j)
+
+
+@pytest.mark.parametrize("step", [1, 2, 3, 4])
+def test_scharr_fixed(raw, step):
+    assert (tscharr.SCHARR_IFAC1, tscharr.SCHARR_IFAC2) == \
+        (jscharr.SCHARR_IFAC1, jscharr.SCHARR_IFAC2)
+    x = raw[:96, :131]
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    lx_t, ly_t = tscharr.scaled_derivatives_fixed(xt, step)
+    lx_j, ly_j = jscharr.scaled_derivatives_fixed(xj, step)
+    assert_equal(lx_t, lx_j)
+    assert_equal(ly_t, ly_j)
+    assert_equal(tscharr.hessian_determinant_fixed(lx_t, ly_t, step),
+                 jscharr.hessian_determinant_fixed(lx_j, ly_j, step))
+    dx, dy = tscharr.scharr_gradient_xy(xt, step)
+    for got, want in zip((dx, dy), golden.scharr_xy(x, step)):
+        assert_equal(got, want)
+    if step == 1:
+        assert_equal(tscharr.scharr_magnitude_fixed(xt),
+                     jscharr.scharr_magnitude_fixed(xj))
+
+
+@pytest.mark.parametrize("diffusivity", list(tcfg.Diffusivity))
+def test_conductivity_fixed(raw, diffusivity):
+    x = raw[:80, :112]
+    kc = np.int32(23)
+    got = tdiff.conductivity_fixed(torch.from_numpy(x), diffusivity,
+                                   torch.tensor(kc))
+    assert got.dtype == torch.int32
+    assert_equal(got, jdiff.conductivity_fixed(
+        jnp.asarray(x), jcfg.Diffusivity(diffusivity), jnp.int32(kc)))
+
+
+def test_nld_step_fixed():
+    """Bit-exact, including int32 wrap-around: a long FED step's factor
+    times the neighbourhood sum of a rough image leaves the int32 range."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 256, (61, 83)).astype(np.int32)
+    flow = rng.integers(0, 65537, x.shape).astype(np.int32)
+    wrapped = False
+    for tau in (0.1837, 2.5, 150.0):
+        got = tdiff.nld_step_fixed(torch.from_numpy(x),
+                                   torch.from_numpy(flow), tau)
+        assert_equal(got, jdiff.nld_step_fixed(jnp.asarray(x),
+                                               jnp.asarray(flow), tau))
+        wide = tdiff.nld_step_fixed(torch.from_numpy(x).long(),
+                                    torch.from_numpy(flow).long(), tau)
+        wrapped |= bool((wide != got.long()).any())
+    assert wrapped   # the trap is real
+
+
+def test_percentile_contrast_fixed(raw):
+    mags = []
+    for x in (raw, raw[:67, :99], raw[:67, :99] // 16):
+        mag = np.asarray(jscharr.scharr_magnitude_fixed(
+            jconv.lowpass_fixed(jnp.asarray(x), 1.0, 5)))
+        want = int(jcontrast.percentile_contrast_fixed(jnp.asarray(mag),
+                                                       0.7))
+        got = tcontrast.percentile_contrast_fixed(torch.tensor(mag), 0.7)
+        assert got.dtype == torch.int32 and int(got) == want
+        mags.append(mag[:60, :90])
+    # batched: one kcontrast per image
+    got = tcontrast.percentile_contrast_fixed(torch.from_numpy(
+        np.stack(mags)), 0.7)
+    for i, m in enumerate(mags):
+        assert int(got[i]) == int(jcontrast.percentile_contrast_fixed(
+            jnp.asarray(m), 0.7))

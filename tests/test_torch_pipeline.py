@@ -9,6 +9,12 @@ exactly; x/y within 1e-4 px; response within 1e-5 of the largest; angle
 within 1e-3 rad (circular); descriptor words exactly (0 flipped bits);
 ``Matches`` index and distance exactly, match_x/match_y (which are train
 keypoint coordinates) within 1e-4 px.
+
+The 16.16 fixed-point pair (raw 0..255 input) is held exact throughout:
+keypoints, responses, descriptor words and ``Matches``.  Its exact
+descriptor flavour is held to the JAX package's XLA descriptor path
+(``pallas_descriptor="off"``), its approximate flavour to the JAX kernel in
+interpret mode.
 """
 
 import dataclasses
@@ -145,3 +151,114 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         Akaze(device="cuda")
 
+
+
+# --------------------------------------------------------------------------
+# the 16.16 fixed-point pair path, both descriptor flavours
+# --------------------------------------------------------------------------
+
+# the JAX descriptor selector of each flavour: its XLA path is the exact
+# flavour, its kernel path (here in interpret mode) the approximate one
+FLAVOURS = {"exact": "off", "approximate": "interpret"}
+
+
+def _raw_images(test_image):
+    """The whole blob image as raw 0..255 uint8, cropped to a pair with the
+    known shift (the fixed threshold keeps too few keypoints on the float
+    tests' smaller crop)."""
+    raw = (test_image * 255).astype(np.uint8)
+    dy, dx = SHIFT
+    h, w = raw.shape[0] - dy, raw.shape[1] - dx
+    return raw[:h, :w].copy(), raw[dy:dy + h, dx:dx + w].copy()
+
+
+@pytest.fixture(scope="module")
+def fixed_runs(test_image):
+    """Per flavour: the JAX package's fixed pair (XLA scale space, which its
+    tests hold bit-exact to its fixed kernel) and matches, and the port's."""
+    a, b = _raw_images(test_image)
+    out = {}
+    for flavour, mode in FLAVOURS.items():
+        jcfg = JConfig(max_pts=256, noctaves=2, pallas_descriptor=mode)
+        jf = jpair(jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32),
+                   jbuild_plan(*a.shape, jcfg), fixed=True)
+        jm = jmatch(jf[0].words, jf[0].valid, jf[1].words, jf[1].valid,
+                    jf[1].x, jf[1].y, jcfg.max_dist)
+        plan = build_plan(*a.shape, config_from(dataclasses.asdict(jcfg)))
+        assert plan.config.fixed_descriptor_exact == (flavour == "exact")
+        for c in COUNTERS:
+            c.launches = 0
+        tf = detect_and_compute_pair(a, b, plan, fixed=True)
+        tm = match(tf[0].words, tf[0].valid, tf[1].words, tf[1].valid,
+                   tf[1].x, tf[1].y, plan.config.max_dist)
+        assert [c.launches for c in COUNTERS] == [0, 0, 0]
+        out[flavour] = (jf, jm, tf, tm, plan)
+    return out
+
+
+@pytest.mark.parametrize("image", [0, 1])
+def test_fixed_detection_matches_jax(fixed_runs, image):
+    """Detection on the int32 planes: counts, layers, sizes, positions and
+    responses all exact."""
+    jf, _, tf, _, _ = fixed_runs["exact"]
+    want, got = jf[image], tf[image]
+    n = int(want.count)
+    assert int(got.count) == n > 10
+    assert bool(got.overflow) == bool(want.overflow)
+    for name in ("layer", "size", "valid", "x", "y", "response"):
+        np.testing.assert_array_equal(getattr(got, name).numpy()[:n],
+                                      np.asarray(getattr(want, name))[:n],
+                                      err_msg=name)
+    for f in fixed_runs.values():     # detection is the flavours' own
+        torch.testing.assert_close(f[2][image].x, got.x, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("flavour", sorted(FLAVOURS))
+def test_fixed_descriptors_and_matches_match_jax(fixed_runs, flavour):
+    """0 flipped bits and equal ``Matches`` for each descriptor flavour."""
+    jf, jm, tf, tm, _ = fixed_runs[flavour]
+    for want, got in zip(jf, tf):
+        n = int(want.count)
+        d = np.abs(got.angle.numpy()[:n] - np.asarray(want.angle)[:n])
+        assert (np.minimum(d, 2 * np.pi - d) < 1e-3).all()
+        x = words_to_numpy(got.words)[:n] ^ np.asarray(want.words)[:n]
+        assert np.unpackbits(x.view(np.uint8), axis=1).sum() == 0
+    for name in ("index", "distance", "match_x", "match_y"):
+        np.testing.assert_array_equal(getattr(tm, name).numpy(),
+                                      np.asarray(getattr(jm, name)),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("flavour", sorted(FLAVOURS))
+def test_fixed_known_shift_recovered(fixed_runs, flavour):
+    _, _, tf, tm, _ = fixed_runs[flavour]
+    n = int(tf[0].count)
+    acc = tm.index.numpy()[:n] >= 0
+    dx = tm.match_x.numpy()[:n][acc] - tf[0].x.numpy()[:n][acc]
+    dy = tm.match_y.numpy()[:n][acc] - tf[0].y.numpy()[:n][acc]
+    assert acc.sum() > 10
+    assert np.median(dx) == -SHIFT[1] and np.median(dy) == -SHIFT[0]
+    inliers = (np.abs(dx + SHIFT[1]) < 1.5) & (np.abs(dy + SHIFT[0]) < 1.5)
+    assert inliers.mean() > 0.85
+
+
+def test_fixed_flavours_differ(fixed_runs):
+    """The two flavours are different descriptors of the same keypoints."""
+    ex, ap = fixed_runs["exact"][2][0], fixed_runs["approximate"][2][0]
+    n = int(ex.count)
+    assert not torch.equal(ex.words[:n], ap.words[:n])
+
+
+def test_fixed_akaze_class(fixed_runs, test_image):
+    """``Akaze(config, fixed=True)`` takes raw 0..255 images (uint8 here)
+    and equals the functions; single images equal the pair."""
+    for flavour, (_, _, tf, tm, plan) in fixed_runs.items():
+        det = Akaze(plan.config, fixed=True, device="cpu")
+        a, b = _raw_images(test_image)
+        fa, fb = det.detect_and_compute_pair(a, b)
+        torch.testing.assert_close(det.match(fa, fb).index, tm.index,
+                                   rtol=0, atol=0)
+        got = det.detect_and_compute(b)
+        for name in got._fields:
+            torch.testing.assert_close(getattr(got, name),
+                                       getattr(tf[1], name), rtol=0, atol=0)

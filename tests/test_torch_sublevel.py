@@ -11,6 +11,10 @@ the fused kernels take the analytic continuation of Lx/Ly across the
 border, where the op path reflects the derivative plane (an odd function,
 so its sign flips).  The band lies inside the extrema border, so detection
 does not see it (``test_det_border_band_inside_extrema_border``).
+
+The 16.16 fixed-point flavour is integer arithmetic and is held bit-exact
+(det on the interior), except L under PM_G1 and WEICKERT where torch's and
+XLA's exp round one ulp apart (bound at ``EXP_L_BOUND``).
 """
 
 import jax.numpy as jnp
@@ -210,3 +214,109 @@ def test_small_plane_takes_op_path(test_image):
                                    atol=TOL * float(np.abs(w).max()),
                                    err_msg=name)
 
+
+
+# --------------------------------------------------------------------------
+# the 16.16 fixed-point flavour: integer planes, held bit-exact
+# --------------------------------------------------------------------------
+
+# 1 / kcontrast^2 of the fixed path: int32 kcontrast, squared in int32
+IKC_FIXED = (np.float32(1.0) / np.asarray([23 * 23, 41 * 41], np.float32))
+# PM_G1 and WEICKERT take exp, which torch and XLA may round one ulp apart;
+# near g*65536 = k + 0.5 that moves the stored flow by one 16.16 LSB, and
+# the FED chain then moves L by a few units there (measured on this input:
+# WEICKERT, one pixel, by 3).  Bound for those two: |dL| <= 4 on at most
+# 4 pixels; Lx, Ly and det (taken on the smooth) stay bit-exact.
+EXP_L_BOUND, EXP_L_PIXELS = 4, 4
+
+
+def _raw_pair(test_image):
+    return (_pair(test_image) * 255).astype(np.uint8).astype(np.int32)
+
+
+def _run_both_fixed(pair, case, diffusivity=Diffusivity.PM_G2):
+    kw = dict(CASES[case])
+    taus, step = kw.pop("taus"), kw.pop("step")
+    smooth = (np.stack([np.asarray(jconv.lowpass_fixed(jnp.asarray(p), 1.0,
+                                                       5)) for p in pair])
+              if kw.pop("smooth", False) else None)
+    want = fused_sublevel_batch(
+        jnp.asarray(pair), jnp.asarray(IKC_FIXED), taus, step,
+        smooth=None if smooth is None else jnp.asarray(smooth),
+        interpret=True, diffusivity=JDiffusivity(int(diffusivity)),
+        fixed=True, **kw)
+    got = sublevel(torch.from_numpy(pair), torch.from_numpy(IKC_FIXED), taus,
+                   step, smooth=None if smooth is None
+                   else torch.from_numpy(smooth),
+                   diffusivity=diffusivity, fixed=True, **kw)
+    m = 2 * step + 2
+    diffs = {}
+    for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+        assert g.dtype == torch.int32, name
+        g, w = g.numpy().astype(np.int64), np.asarray(w).astype(np.int64)
+        if name == "det":
+            g, w = g[..., m:-m, m:-m], w[..., m:-m, m:-m]
+        diffs[name] = np.abs(g - w)
+    return diffs
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fixed_sublevel_matches_fused_pallas(test_image, case):
+    """PM_G2: L, Lx, Ly bit-exact everywhere, det on the interior."""
+    for name, d in _run_both_fixed(_raw_pair(test_image), case).items():
+        assert d.max() == 0, (name, d.max(), (d > 0).sum())
+
+
+@pytest.mark.parametrize("diffusivity", [Diffusivity.PM_G1,
+                                         Diffusivity.WEICKERT,
+                                         Diffusivity.CHARBONNIER])
+def test_fixed_sublevel_other_diffusivities(test_image, diffusivity):
+    diffs = _run_both_fixed(_raw_pair(test_image), "next", diffusivity)
+    for name in ("det", "lx", "ly"):
+        assert diffs[name].max() == 0, name
+    dl = diffs["L"]
+    if diffusivity == Diffusivity.CHARBONNIER:   # IEEE / and sqrt only
+        assert dl.max() == 0
+    else:
+        assert dl.max() <= EXP_L_BOUND and (dl > 0).sum() <= EXP_L_PIXELS
+
+
+def test_fixed_flag_must_match_dtype():
+    x = torch.zeros((1, 40, 50), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        sublevel(x, torch.ones(1), (), 2)
+    with pytest.raises(TypeError):
+        sublevel(x.float(), torch.ones(1), (), 2, fixed=True)
+    with pytest.raises(TypeError):
+        sublevel(x, torch.ones(1), (0.2,), 2, smooth=x.float(), fixed=True)
+
+
+@pytest.fixture(scope="module")
+def fixed_scale_spaces(test_image):
+    """The raw pair's fixed scale space from both packages (2 octaves);
+    the JAX package's XLA path, which its own tests hold bit-exact to its
+    fixed Pallas kernel (tests/test_pallas_sublevel.py:91)."""
+    pair = _raw_pair(test_image)
+    jcfg = JConfig(max_pts=256, noctaves=2, pallas_scale_space="off")
+    jplan = jbuild_plan(*pair.shape[1:], jcfg)
+    want, kc_want = jbuild_scale_space(jnp.asarray(pair), jplan, fixed=True)
+    plan = build_plan(*pair.shape[1:], config_from(jcfg.__dict__))
+    sublevel.launches = 0
+    got, kc_got = build_scale_space(torch.from_numpy(pair), plan)
+    return got, kc_got, want, kc_want
+
+
+def test_fixed_scale_space_matches_jax(fixed_scale_spaces):
+    """Every plane bit-exact, det included: on the CPU both sides take the
+    op path."""
+    got, kc_got, want, kc_want = fixed_scale_spaces
+    assert kc_got.dtype == torch.int32
+    np.testing.assert_array_equal(kc_got.numpy(), np.asarray(kc_want))
+    for og, ow in zip(got, want):
+        for name in og._fields:
+            g = getattr(og, name)
+            assert g.dtype == torch.int32, name
+            np.testing.assert_array_equal(g.numpy(),
+                                          np.asarray(getattr(ow, name)),
+                                          err_msg=name)
+    assert sublevel.launches == 0

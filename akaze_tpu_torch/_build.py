@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-All sources under ``csrc/`` compile with ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library goes to ``_build/`` beside this file,
-named by a hash of the sources and flags, and is rebuilt when that hash
-changes.  Nothing builds at import time: the first kernel launch calls
+Each source under ``csrc/`` compiles with its own ``nvcc``, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The library goes to ``_build/`` beside this file, named by a
+hash of the sources and flags, and is rebuilt when that hash changes.
+Nothing builds at import time: the first kernel launch calls
 ``library()``.
 
 Every C entry point returns the ``cudaError_t`` of its launch; wrappers
@@ -31,16 +32,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # plain versions evaluate them, so a kernel and its plain version can agree
 # bit for bit (the descriptor's sample positions truncate to integers).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # argument types of every C entry point (csrc/*.cu, extern "C")
 SIGNATURES = {
-    "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP,
+    "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _VP],
+    "akaze_octave": [_VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "akaze_describe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _VP, _I, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
@@ -89,18 +90,36 @@ def build() -> dict:
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": "", "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{text}")
         out = Path(tmp) / lib.name
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *cu]
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out), *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise KernelError(f"nvcc failed ({proc.returncode}):\n"
                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(out, lib)   # atomic: concurrent builders never see half
     return {"path": str(lib), "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr, "cached": False}
+            "log": "".join(log), "cached": False}
 
 
 @lru_cache(maxsize=None)
@@ -143,6 +162,8 @@ def ptr(t) -> int:
 
 
 def stream_of(t) -> int:
-    """The current PyTorch stream of ``t``'s device, for a launch."""
+    """The current PyTorch stream of ``t``'s device, for a launch: the raw
+    handle, without building a ``torch.cuda.Stream`` (which costs several
+    microseconds of host time per launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

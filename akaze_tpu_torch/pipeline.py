@@ -1,11 +1,12 @@
 """End-to-end AKAZE pipeline (PyTorch): image(s) -> features -> matches.
 
 Port of ``akaze_tpu/pipeline.py``.  One code path serves one image and a
-pair: the scale space of all B images runs with one K1 launch per
-sublevel, detection runs per image, and one K2 launch describes every
-image's keypoints.  ``Akaze.match`` runs K4.  On CPU tensors every
-kernel's plain version runs instead; nothing chooses a device behind the
-caller's back.
+pair: the scale space of all B images runs with the same K1 launches
+(13 per pair at 960x1280), detection runs per image, and one K2 launch
+describes every image's keypoints.  ``Akaze.match`` runs K4.  Entry
+points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
+raise without a card), a tensor stays where it lies, and ``device="cpu"``
+runs every kernel's plain version instead.
 
 ``fixed=True`` selects the 16.16 fixed-point path (the reference's
 ``fastDetectAndCompute``): images are raw 0..255 values taken as int32,
@@ -43,13 +44,25 @@ class Features(NamedTuple):
     overflow: torch.Tensor  # scalar bool: NMS survivors dropped by a cap
 
 
+def _device(device) -> torch.device:
+    """``device``, checked: a CUDA device needs a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           f"available; pass device=\"cpu\" to run the "
+                           f"plain versions on the CPU")
+    return device
+
+
 def _as_images(images, device, fixed: bool = False) -> torch.Tensor:
     """[B, H, W] on ``device`` (default: where a tensor already is, else the
-    CPU): float32, or int32 for the fixed path."""
+    card): float32, or int32 for the fixed path."""
     if device is None:
-        device = images.device if isinstance(images, torch.Tensor) else "cpu"
+        device = (images.device if isinstance(images, torch.Tensor)
+                  else "cuda")
     dtype = torch.int32 if fixed else torch.float32
-    return torch.as_tensor(images, device=device).to(dtype).contiguous()
+    return torch.as_tensor(images, device=_device(device)).to(
+        dtype).contiguous()
 
 
 def detect_batch(images, plan: PipelinePlan, *, fixed: bool = False,
@@ -74,8 +87,8 @@ def detect_batch(images, plan: PipelinePlan, *, fixed: bool = False,
 def detect_and_compute_batch(images, plan: PipelinePlan, *,
                              fixed: bool = False, device=None) -> list:
     """Features of each image of a [B, H, W] batch (float in [0, 1], or raw
-    0..255 with ``fixed``): one K1 launch per sublevel and one K2 launch
-    for the whole batch."""
+    0..255 with ``fixed``): the K1 launches of one scale space and one K2
+    launch for the whole batch."""
     kps, pp = detect_batch(images, plan, fixed=fixed, device=device)
     described = orient_describe_multi(kps, pp, plan, fixed)
     return [Features(x=k.x, y=k.y, size=k.size, layer=k.layer,
@@ -94,8 +107,9 @@ def detect_and_compute(image, plan: PipelinePlan, *, fixed: bool = False,
 
 def detect_and_compute_pair(image_a, image_b, plan: PipelinePlan, *,
                             fixed: bool = False, device=None):
-    """Features of both images of a matching pair, batched: 16 K1 launches
-    and one K2 launch for the pair.  Returns (features_a, features_b)."""
+    """Features of both images of a matching pair, batched: the K1
+    launches of one scale space and one K2 launch for the pair.  Returns
+    (features_a, features_b)."""
     a = _as_images(image_a, device, fixed)
     b = _as_images(image_b, a.device, fixed)
     if a.shape != b.shape:
@@ -106,19 +120,18 @@ def detect_and_compute_pair(image_a, image_b, plan: PipelinePlan, *,
 
 
 class Akaze:
-    """Plans cached per image shape; every tensor on ``device``.
+    """Plans cached per image shape; every tensor on ``device``: the card
+    unless the caller asks for the CPU (``device="cpu"``, where every
+    kernel's plain version runs).  Without a card, the default raises.
 
     ``fixed=True``: the 16.16 fixed-point path; images are raw 0..255
     (as the reference's demo feeds its fast path, main.cpp:257-258)."""
 
     def __init__(self, config: Optional[AkazeConfig] = None,
-                 fixed: bool = False, device="cpu"):
+                 fixed: bool = False, device="cuda"):
         self.config = config or AkazeConfig()
         self.fixed = fixed
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is "
-                               f"not available")
+        self.device = _device(device)
         self._plans = {}
 
     def plan_for(self, height: int, width: int) -> PipelinePlan:

@@ -7,36 +7,49 @@ Phases, each of which fails the run (non-zero exit, no result line) on
 any disagreement:
 
   1. the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build the CUDA kernels from ``akaze_tpu_torch/csrc`` (nvcc);
-  3. K1 (fused sublevel) against its plain version for all 16 sublevels of
-     the 960x1280 plan, B = 2: L/Lx/Ly within 1e-5 of each plane's max,
-     det on the interior;
+  2. build the CUDA kernels from ``akaze_tpu_torch/csrc`` (one nvcc per
+     source, all started together);
+  3. K1 against its plain version on every octave of the 960x1280 plan,
+     B = 2, through the scale space's own calls: the tiled kernel on
+     octaves 0-2 and the octave-resident kernel on octave 3; on all 16
+     sublevels L/Lx/Ly/det within 1e-5 of each plane's max, det on the
+     whole plane for resident octaves and on the interior for tiled ones;
   4. K2 (orientation + descriptor) against its plain version on the
      keypoints and pyramid of the 960x1280 pair: angles within 1e-3 rad,
      flipped descriptor bits (must be 0);
   5. K4 (Hamming top-2) against its plain version, 10000 x 10000 seeded
-     words with ~20% invalid rows and planted ties: ``Matches`` equal;
+     words with ~20% invalid rows and planted ties (a stress shape the main
+     path never has): ``Matches`` equal;
   6. the main path, ``Akaze.detect_and_compute_pair`` + ``Akaze.match`` at
      960x1280, max_pts=10000, with the launch counters reset before and
-     read after (K1 16, K2 1, K4 1); on the synthetic pair the known shift
-     must be recovered with an inlier fraction > 0.85; a small pair must
-     agree with the CPU plain pipeline;
-  7. timings with CUDA events: the pair iteration (median of 20 after
-     warm-up), its stages, and each kernel against its plain version;
+     read after (K1 13 = 12 tiled + 1 resident, K2 1, K4 1); on the
+     synthetic pair the known shift must be recovered with an inlier
+     fraction > 0.85; K4 held against its plain version at the pair's own
+     live counts; a small pair must agree with the CPU plain pipeline;
+  7. timings: each kernel's device time per launch and per pair from
+     ``torch.profiler`` kernel durations over main-path pair iterations,
+     the wrappers' host time per call (20 calls, no synchronisation), the
+     event-bracketed call time (host + device) and the plain versions';
+     the pair iteration (median of 20 after warm-up) and its stages;
   8. the 16.16 fixed-point path (``Akaze(..., fixed=True)``) on the pair
-     quantised to raw 0..255: K1's fixed flavour against its plain version
-     on all 16 sublevels, bit-exact (det on the interior); K2's exact fixed
-     flavour on the fixed pair's keypoints, 0 flipped bits; the main path
-     for both descriptor flavours (exact, ``fixed_exact_sampling=True``,
-     and approximate, the default), each with its launch counters reset
-     before and read after, the shift recovered; a small pair of each
-     flavour against the CPU plain pipeline; and the same timings.
+     quantised to raw 0..255: K1's fixed flavours against their plain
+     version on all 16 sublevels, bit-exact (det on the whole plane for
+     resident octaves); K2's exact fixed flavour on the fixed pair's
+     keypoints, 0 flipped bits; the main path for both descriptor flavours
+     (exact, ``fixed_exact_sampling=True``, and approximate, the default),
+     each with its launch counters reset before and read after, the shift
+     recovered; a small pair of each flavour against the CPU plain
+     pipeline; and the same timings.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
 synthetic 960x1280 texture A and its crop B shifted by (dy, dx) = (7, 13).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``: per kernel its
+launches on the main path, device time per pair (``ms``) and per launch
+(``device_ms``), host time per wrapper call (``host_us``), event-bracketed
+time (``event_ms``, host + device), the plain version's time, and the
+bound computed from this run's inputs.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -58,6 +71,17 @@ SHIFT = (7, 13)
 SEED = 0
 TOL = 1e-5
 REPS = 20           # timed pair iterations; the median is the metric
+HOST_CALLS = 20     # wrapper calls per host-time measurement
+PROFILE_REPS = 3    # profiled main-path pair iterations
+# NVIDIA H100 SXM peaks (on-chip-measurement guide): device memory,
+# float32 outside the tensor cores (also taken for K1's int32 flavour),
+# int8 tensor cores (dense)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12
+# K2 taps per live slot: 109 live orientation taps of Lx and Ly, 441 MLDB
+# taps of L, Lx and Ly (csrc/describe.cu)
+K2_TAPS = 109 * 2 + 441 * 3
 
 
 def fail(msg: str) -> None:
@@ -135,7 +159,8 @@ def quantise(x: np.ndarray) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median over ``reps`` of one call's time between CUDA events."""
+    """Median over ``reps`` of one call's time between CUDA events: host
+    work before the launches included (host + device)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -148,6 +173,54 @@ def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Host time of one call: ``calls`` calls with no synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def device_kernels(torch, fn, reps: int = PROFILE_REPS) -> dict:
+    """{kernel name: (device ms, launches)} per call of ``fn``, from
+    ``torch.profiler`` (CUPTI) kernel durations over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        ns, n = out.get(e.name(), (0, 0))
+        out[e.name()] = (ns + e.duration_ns(), n + 1)
+    return {k: (ns / reps / 1e6, n / reps) for k, (ns, n) in out.items()}
+
+
+def kernel_time(profile: dict, needle: str):
+    """(device ms, launches) per call of the kernels whose name holds
+    ``needle``; fails when the trace has none."""
+    hits = [v for k, v in profile.items() if needle in k]
+    check(bool(hits), f"no {needle} kernel in the profiler trace")
+    return sum(h[0] for h in hits), sum(h[1] for h in hits)
+
+
+def bound(nbytes: float, ops: float, op_rate: float = F32_OPS_PER_S):
+    """(least ms, what binds): bytes over the memory rate or operations
+    over the peak rate, the larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / op_rate
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def rel_err(torch, got, want, margin: int = 0):
@@ -193,65 +266,116 @@ def phase_build():
             print("[build]", line.strip())
 
 
-def record_sublevels(images, plan):
+def record_octaves(images, plan):
     """Every K1 call that the scale space of ``images`` makes, in pipeline
     order, with its arguments: the main path's own K1 inputs."""
     from akaze_tpu_torch import scale_space
 
-    kernel = scale_space.sublevel
+    kernel = scale_space.octave
     calls = []
 
     def recording(*args, **kw):
         calls.append((args, kw))
         return kernel(*args, **kw)
 
-    scale_space.sublevel = recording
+    scale_space.octave = recording
     try:
         scale_space.build_scale_space(images, plan)
     finally:
-        scale_space.sublevel = kernel
-    names = [f"o{oi}s{sp.scale}" for oi, octave in enumerate(plan.octaves)
-             for sp in octave.scales]
-    check(len(calls) == len(names),
-          f"{len(names) - len(calls)} sublevels did not take K1")
-    return [(name, args, kw) for name, (args, kw) in zip(names, calls)]
+        scale_space.octave = kernel
+    check(len(calls) == len(plan.octaves),
+          f"{len(plan.octaves) - len(calls)} octaves did not take K1")
+    return calls
+
+
+def k1_work(oct_plan, batch: int, given_smooth: bool, resident: bool):
+    """(bytes, operations) K1 must move and do for one octave: each launch
+    reads its input once and writes each of its planes once (a tiled
+    launch is one sublevel, a resident one the octave), and every stencil
+    operation of the plain version is counted once per pixel."""
+    px = batch * oct_plan.height * oct_plan.width
+    S = len(oct_plan.scales)
+    planes = (1 + given_smooth + 4 * S) if resident else (5 * S + given_smooth)
+    ops = 0
+    for s, sp in enumerate(oct_plan.scales):
+        if not (s == 0 and given_smooth):
+            r = 4 if (s == 0 and oct_plan.octave == 0) else 2
+            ops += 2 * (1 + 3 * r)                       # Gaussian, 2 passes
+        if sp.taus:
+            ops += 20 + 17 * len(sp.taus)                # flow, FED steps
+        ops += 14 + 24                                   # Lx, Ly; det
+    return 4 * px * planes, ops * px
 
 
 def phase_k1(torch, images, plan, tag="K1"):
-    """K1 against its plain version on every sublevel of the pair's scale
-    space.  int32 images take the fixed flavour, held bit-exact."""
-    from akaze_tpu_torch.ops.sublevel import sublevel, sublevel_plain
+    """K1 against its plain version on every octave of the pair's scale
+    space.  int32 images take the fixed flavours, held bit-exact.  Returns
+    per kernel (tiled, resident) its errors, event-bracketed and plain
+    times, host time per launch and bound."""
+    from akaze_tpu_torch.ops import sublevel as k1
 
     fixed = images.dtype == torch.int32
     tol = 0.0 if fixed else TOL
-    calls = record_sublevels(images, plan)
-    worst_rel, worst_abs, ms, plain_ms, ms1, plain_ms1 = (0.0,) * 6
-    for name, args, kw in calls:
-        check(kw["fixed"] == fixed, f"{tag} {name}: flavour")
-        got = sublevel(*args, **kw)
-        want = sublevel_plain(*args, **kw)
+    calls = record_octaves(images, plan)
+    res = {kind: dict(octaves=[], max_abs_err=0.0, max_rel=0.0, event_ms=0.0,
+                      plain_ms=0.0, event_ms1=0.0, plain_ms1=0.0, host=0.0,
+                      launches=0, bytes=0, ops=0)
+           for kind in ("tiled", "resident")}
+    for oi, ((args, kw), op) in enumerate(zip(calls, plan.octaves)):
+        check(kw["fixed"] == fixed, f"{tag} octave {oi}: flavour")
+        resident = k1.routes_resident(op, kw.get("base"))
+        r = res["resident" if resident else "tiled"]
+        r["octaves"].append(oi)
+        got = k1.octave(*args, **kw)
+        want = k1.octave_plain(*args, **kw)
         torch.cuda.synchronize()
-        step = args[3]
-        for pname, g, w in zip(("L", "det", "lx", "ly"), got, want):
-            check(g.dtype == w.dtype == images.dtype, f"{tag} {name} type")
-            rel, ab = rel_err(torch, g.double(), w.double(),
-                              2 * step + 2 if pname == "det" else 0)
-            check(rel <= tol, f"{tag} {name} {pname}: rel err {rel:.3g}")
-            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
-        ms += cuda_ms(torch, lambda: sublevel(*args, **kw))
-        plain_ms += cuda_ms(torch, lambda: sublevel_plain(*args, **kw))
+        for s, sp in enumerate(op.scales):
+            for pname, g, w in zip(("L", "det", "lx", "ly"), got, want):
+                check(g.dtype == w.dtype == images.dtype,
+                      f"{tag} o{oi}s{s} type")
+                margin = (2 * sp.sigma_size + 2
+                          if pname == "det" and not resident else 0)
+                rel, ab = rel_err(torch, g[:, s].double(), w[:, s].double(),
+                                  margin)
+                check(rel <= tol, f"{tag} o{oi}s{s} {pname}: rel err "
+                      f"{rel:.3g} ({'resident' if resident else 'tiled'})")
+                r["max_rel"] = max(r["max_rel"], rel)
+                r["max_abs_err"] = max(r["max_abs_err"], ab)
+        r["event_ms"] += cuda_ms(torch, lambda: k1.octave(*args, **kw))
+        r["plain_ms"] += cuda_ms(torch, lambda: k1.octave_plain(*args, **kw))
+        before = k1.launches()
+        k1.octave(*args, **kw)
+        n = k1.launches() - before
+        check(n == (1 if resident else len(op.scales)),
+              f"{tag} octave {oi}: {n} launches")
+        r["launches"] += n
+        r["host"] += host_us(torch, lambda: k1.octave(*args, **kw))
+        nb, no = k1_work(op, images.shape[0], kw.get("smooth") is not None,
+                         resident)
+        r["bytes"] += nb
+        r["ops"] += no
         # B = 1, the single-image form (fused_sublevel of the JAX package)
         args1 = tuple(a[:1] if isinstance(a, torch.Tensor) else a
                       for a in args)
         kw1 = {k: v[:1] if isinstance(v, torch.Tensor) else v
                for k, v in kw.items()}
-        ms1 += cuda_ms(torch, lambda: sublevel(*args1, **kw1))
-        plain_ms1 += cuda_ms(torch, lambda: sublevel_plain(*args1, **kw1))
-    print(f"[{tag}] {len(calls)} sublevels x B=2 agree: max rel err "
-          f"{worst_rel:.3g} (abs {worst_abs:.3g}); per pair {ms:.3f} ms "
-          f"vs plain {plain_ms:.3f} ms; B=1 per image {ms1:.3f} ms vs "
-          f"plain {plain_ms1:.3f} ms")
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+        r["event_ms1"] += cuda_ms(torch, lambda: k1.octave(*args1, **kw1))
+        r["plain_ms1"] += cuda_ms(torch,
+                                  lambda: k1.octave_plain(*args1, **kw1))
+    for kind, r in res.items():
+        r["host_us"] = r["host"] / max(r["launches"], 1)
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
+        print(f"[{tag} {kind}] octaves {r['octaves']}, {r['launches']} "
+              f"launches, every sublevel agrees: max rel err "
+              f"{r['max_rel']:.3g} (abs {r['max_abs_err']:.3g}), det on the "
+              f"{'whole plane' if kind == 'resident' else 'interior'}; "
+              f"event-bracketed (host + device) {r['event_ms']:.3f} ms per "
+              f"pair vs plain {r['plain_ms']:.3f} ms; B=1 per image "
+              f"{r['event_ms1']:.3f} ms vs plain {r['plain_ms1']:.3f} ms; "
+              f"host {r['host_us']:.1f} us per launch; bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
+              f"{r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.3f} Gop)")
+    return res
 
 
 def phase_k2(torch, images, plan, fixed=False, tag="K2"):
@@ -294,19 +418,63 @@ def phase_k2(torch, images, plan, fixed=False, tag="K2"):
     check(n_live > 100, f"too few keypoints for {tag}: {n_live}")
     check(angle_err < 1e-3, f"{tag} angle err {angle_err}")
     check(int(flips.max()) == 0, f"{tag} flipped bits: max {flips.max()}")
-    ms = cuda_ms(torch, lambda: describe(ip, fp, planes, tables, fixed))
+    event = cuda_ms(torch, lambda: describe(ip, fp, planes, tables, fixed))
     plain_ms = cuda_ms(torch, lambda: describe_plain(ip, fp, planes, tables,
                                                      fixed))
-    print(f"[{tag}] {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=max(angle_err, acc_err), ms=ms,
-                plain_ms=plain_ms)
+    host = host_us(torch, lambda: describe(ip, fp, planes, tables, fixed))
+    nbytes = (n_live * K2_TAPS * pp.L.element_size()
+              + ip.numel() * 4 + fp.numel() * 4 + a1.numel() * 4
+              + c1.numel() * 4)
+    bms, by = bound(nbytes, 0)
+    print(f"[{tag}] event-bracketed (host + device) {event:.3f} ms vs plain "
+          f"{plain_ms:.3f} ms; host {host:.1f} us per call; bound "
+          f"{bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=max(angle_err, acc_err), event_ms=event,
+                plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
 
 
-def phase_k4(torch, dev):
-    from akaze_tpu_torch.descriptor import pack_bits
+def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
+    """K4 against its plain version on one input: ``Matches`` equal; its
+    times, host time and bound (the +-1 int8 tensor-core form of the TPU
+    kernel: 2 x 486 operations per live pair)."""
     from akaze_tpu_torch.match import matches_from_top2
     from akaze_tpu_torch.ops.hamming import (hamming_top2,
                                              hamming_top2_plain, last_live)
+
+    c1, c2 = last_live(v1), last_live(v2)
+    got = hamming_top2(w1, w2, v2, c1, c2)
+    want = hamming_top2_plain(w1, w2, v2, c1, c2)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    m1 = matches_from_top2(*got, v1, x2, y2)
+    m2 = matches_from_top2(*want, v1, x2, y2)
+    same = all(torch.equal(a, b) for a, b in zip(m1, m2))
+    ties = int(((want[0] == want[1]) & (want[2] >= 0)).sum())
+    n1, n2 = int(c1), int(c2)
+    print(f"[{tag}] {n1} x {n2} live extents of {w1.shape[0]} x "
+          f"{w2.shape[0]}, {int((~v2).sum())} invalid train rows, {ties} "
+          f"tied minima: top-2 max abs err {err}, Matches equal {same}, "
+          f"{int((m1.index >= 0).sum())} accepted")
+    check(err == 0 and same, f"{tag}: K4 disagrees with its plain version")
+    fn = lambda: hamming_top2(w1, w2, v2, c1, c2)  # noqa: E731
+    event = cuda_ms(torch, fn)
+    plain_ms = cuda_ms(torch, lambda: hamming_top2_plain(w1, w2, v2, c1, c2),
+                       reps=plain_reps)
+    host = host_us(torch, fn)
+    dev_ms, _ = kernel_time(device_kernels(torch, fn), "hamming_kernel")
+    nbytes = (n1 + n2) * 64 + n2 + 3 * 4 * w1.shape[0]
+    bms, by = bound(nbytes, 2 * 486 * n1 * n2, INT8_TC_OPS_PER_S)
+    print(f"[{tag}] device {dev_ms:.4f} ms (profiler); event-bracketed "
+          f"(host + device) {event:.3f} ms vs plain {plain_ms:.3f} ms; host "
+          f"{host:.1f} us per call; bound {bms * 1e3:.2f} us ({by}; popcount "
+          f"form {n1 * n2 * 16 / (132 * 16 * 1.98e9) * 1e6:.1f} us)")
+    return dict(max_abs_err=err, ties=ties, device_ms=dev_ms, event_ms=event,
+                plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
+
+
+def phase_k4(torch, dev):
+    """The 10000 x 10000 stress shape with planted ties."""
+    from akaze_tpu_torch.descriptor import pack_bits
 
     rng = np.random.default_rng(SEED + 4)
     n = MAX_PTS
@@ -321,46 +489,39 @@ def phase_k4(torch, dev):
     v2 = torch.from_numpy(rng.random(n) > 0.2).to(dev)
     x2 = torch.from_numpy(rng.uniform(0, W, n).astype(np.float32)).to(dev)
     y2 = torch.from_numpy(rng.uniform(0, H, n).astype(np.float32)).to(dev)
-    c1, c2 = last_live(v1), last_live(v2)
-    got = hamming_top2(w1, w2, v2, c1, c2)
-    want = hamming_top2_plain(w1, w2, v2, c1, c2)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    m1 = matches_from_top2(*got, v1, x2, y2)
-    m2 = matches_from_top2(*want, v1, x2, y2)
-    same = all(torch.equal(a, b) for a, b in zip(m1, m2))
-    ties = int(((want[0] == want[1]) & (want[2] >= 0)).sum())
-    print(f"[K4] {n} x {n}, {int((~v2).sum())} invalid train rows, {ties} "
-          f"tied minima: top-2 max abs err {err}, Matches equal {same}, "
-          f"{int((m1.index >= 0).sum())} accepted")
-    check(err == 0 and same, "K4 disagrees with its plain version")
-    check(ties > 0, "no planted ties reached the matcher")
-    ms = cuda_ms(torch, lambda: hamming_top2(w1, w2, v2, c1, c2))
-    plain_ms = cuda_ms(torch, lambda: hamming_top2_plain(w1, w2, v2, c1,
-                                                         c2), reps=3)
-    print(f"[K4] {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    r = k4_case(torch, "K4 stress", w1, w2, v1, v2, x2, y2)
+    check(r["ties"] > 0, "no planted ties reached the matcher")
+    return r
 
 
 def counters():
     from akaze_tpu_torch.ops.describe import describe
     from akaze_tpu_torch.ops.hamming import hamming_top2
-    from akaze_tpu_torch.ops.sublevel import sublevel
-    return {"sublevel": sublevel, "describe": describe,
+    from akaze_tpu_torch.ops.sublevel import octave, sublevel
+    return {"tiled": sublevel, "resident": octave, "describe": describe,
             "hamming": hamming_top2}
 
 
+# K1 launches of the 960x1280 plan: octaves 0-2 tiled (4 + 4 + 4), octave 3
+# resident (1)
+MAIN_LAUNCHES = {"tiled": 12, "resident": 1, "describe": 1, "hamming": 1}
+
+
 def phase_main(torch, det, a, b, shift, tag="main"):
-    n_sub = sum(len(o.scales) for o in det.plan_for(H, W).octaves)
+    from akaze_tpu_torch.ops.sublevel import octave_launches
+    plan = det.plan_for(H, W)
+    check(sum(octave_launches(o) for o in plan.octaves)
+          == MAIN_LAUNCHES["tiled"] + MAIN_LAUNCHES["resident"],
+          "the plan's K1 launches")
     for fn in counters().values():
         fn.launches = 0
     fa, fb = det.detect_and_compute_pair(a, b)
     m = det.match(fa, fb)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
-    print(f"[{tag}] launches {launches}")
-    check(launches == {"sublevel": n_sub, "describe": 1, "hamming": 1},
-          f"main path launches {launches}")
+    print(f"[{tag}] launches {launches} (K1 "
+          f"{launches['tiled'] + launches['resident']})")
+    check(launches == MAIN_LAUNCHES, f"main path launches {launches}")
 
     for f in (fa, fb):
         check(f.x.shape == (MAX_PTS,) and f.words.shape == (MAX_PTS, 16),
@@ -376,11 +537,13 @@ def phase_main(torch, det, a, b, shift, tag="main"):
           f"{bool(fa.overflow)}, {bool(fb.overflow)}; accepted "
           f"{int(acc.sum())}")
     check(n > 500 and int(fb.count) > 500, "too few keypoints")
+    k4 = k4_case(torch, f"K4 {tag}", fa.words, fb.words, fa.valid, fb.valid,
+                 fb.x, fb.y)
     if shift is None:
         print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, "
               f"{np.median(dy)})")
         check(acc.sum() > 100, "too few accepted matches")
-        return launches
+        return launches, k4
     inl = (np.abs(dx + shift[1]) < 1.5) & (np.abs(dy + shift[0]) < 1.5)
     print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, {np.median(dy)}); "
           f"inlier fraction {inl.mean():.4f}")
@@ -388,7 +551,23 @@ def phase_main(torch, det, a, b, shift, tag="main"):
     check(np.median(dx) == -shift[1] and np.median(dy) == -shift[0],
           "known shift not recovered")
     check(inl.mean() > 0.85, f"inlier fraction {inl.mean():.4f}")
-    return launches
+    return launches, k4
+
+
+def phase_profile(torch, det, a, b, tag="profile"):
+    """Device time of each kernel over main-path pair iterations."""
+    at = torch.as_tensor(a, device=det.device)
+    bt = torch.as_tensor(b, device=det.device)
+
+    def pair_iteration():
+        fa, fb = det.detect_and_compute_pair(at, bt)
+        return det.match(fa, fb)
+
+    prof = device_kernels(torch, pair_iteration)
+    total = sum(v[0] for v in prof.values())
+    print(f"[{tag}] {sum(v[1] for v in prof.values()):.0f} device kernels, "
+          f"{total:.3f} ms device time per pair")
+    return prof
 
 
 def phase_small_reference(torch, dev, fixed=False, exact=False,
@@ -504,8 +683,9 @@ def main() -> int:
     k1 = phase_k1(torch, images, plan)
     k2 = phase_k2(torch, images, plan)
     k4 = phase_k4(torch, dev)
-    launches = phase_main(torch, det, a, b, shift)
+    launches, k4_main = phase_main(torch, det, a, b, shift)
     phase_small_reference(torch, dev)
+    prof = phase_profile(torch, det, a, b)
     pair_ms = phase_timing(torch, det, a, b)
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
 
@@ -518,38 +698,69 @@ def main() -> int:
                              for x in (a8, b8)])
     k1_fx = phase_k1(torch, images_fx, plan_fx, tag="K1 fixed")
     k2_fx = phase_k2(torch, images_fx, plan_fx, fixed=True, tag="K2 fixed")
-    launches_fx = phase_main(torch, exact, a8, b8, shift,
-                             tag="main fixed exact")
-    launches_ap = phase_main(torch, approx, a8, b8, shift,
-                             tag="main fixed approximate")
+    launches_fx, _ = phase_main(torch, exact, a8, b8, shift,
+                                tag="main fixed exact")
+    launches_ap, _ = phase_main(torch, approx, a8, b8, shift,
+                                tag="main fixed approximate")
     phase_small_reference(torch, dev, fixed=True, exact=True,
                           tag="check fixed exact")
     phase_small_reference(torch, dev, fixed=True,
                           tag="check fixed approximate")
+    prof_fx = phase_profile(torch, exact, a8, b8, tag="profile fixed exact")
     fx_ms = phase_timing(torch, exact, a8, b8, tag="time fixed exact")
     ap_ms = phase_timing(torch, approx, a8, b8, tag="time fixed approximate")
     print(f"[time] card: {card}; fixed pair iteration {fx_ms:.3f} ms "
           f"(exact), {ap_ms:.3f} ms (approximate)")
 
+    k1_rep = "akaze_tpu/ops/pallas_sublevel.py:423"
     k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
               "akaze_tpu/ops/pallas_describe.py:579")
-    rows = [
-        ("sublevel_kernel", "akaze_tpu_torch/csrc/sublevel.cu",
-         "akaze_tpu/ops/pallas_sublevel.py:423", launches["sublevel"], k1),
-        ("sublevel_kernel_fixed", "akaze_tpu_torch/csrc/sublevel.cu",
-         "akaze_tpu/ops/pallas_sublevel.py:423", launches_fx["sublevel"],
-         k1_fx),
-        ("describe_kernel", "akaze_tpu_torch/csrc/describe.cu", k2_rep,
-         launches["describe"], k2),
-        ("describe_kernel_fixed", "akaze_tpu_torch/csrc/describe.cu", k2_rep,
-         launches_fx["describe"], k2_fx),
-        ("hamming_kernel", "akaze_tpu_torch/csrc/hamming.cu",
-         "akaze_tpu/ops/pallas_match.py:103", launches["hamming"], k4),
-    ]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]} for name, src, rep, n, r in rows]}))
+    k1_src = "akaze_tpu_torch/csrc/sublevel.cu"
+    k2_src = "akaze_tpu_torch/csrc/describe.cu"
+    rows = []
+    for name, needle, p, r, n in (
+            ("tiled_kernel", "tiled_kernel<float>", prof, k1["tiled"],
+             launches["tiled"]),
+            ("octave_kernel", "octave_kernel<float>", prof, k1["resident"],
+             launches["resident"]),
+            ("tiled_kernel_fixed", "tiled_kernel<int>", prof_fx,
+             k1_fx["tiled"], launches_fx["tiled"]),
+            ("octave_kernel_fixed", "octave_kernel<int>", prof_fx,
+             k1_fx["resident"], launches_fx["resident"])):
+        ms, nl = kernel_time(p, needle)
+        check(nl == n, f"{name}: {nl} launches in the trace, {n} counted")
+        rows.append((name, k1_src, k1_rep, n, ms, r, r["event_ms"]))
+    for name, needle, p, r, n in (
+            ("describe_kernel", "describe_kernel<__nv_bfloat16", prof, k2,
+             launches["describe"]),
+            ("describe_kernel_fixed", "describe_kernel<float", prof_fx,
+             k2_fx, launches_fx["describe"])):
+        ms, _ = kernel_time(p, needle)
+        rows.append((name, k2_src, k2_rep, n, ms, r, r["event_ms"]))
+    ms, _ = kernel_time(prof, "hamming_kernel")
+    rows.append(("hamming_kernel", "akaze_tpu_torch/csrc/hamming.cu",
+                 "akaze_tpu/ops/pallas_match.py:103", launches["hamming"],
+                 ms, k4_main, k4_main["event_ms"]))
+    kernels = []
+    for name, src, rep, n, ms, r, event in rows:
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": n, "max_abs_err": r["max_abs_err"], "ms": ms,
+               "device_ms": ms / max(n, 1), "host_us": r["host_us"],
+               "event_ms": event, "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": None}
+        if name == "hamming_kernel":
+            row["stress_10000x10000"] = {
+                k: k4[k] for k in ("device_ms", "event_ms", "plain_ms",
+                                   "host_us", "bound_ms")}
+        kernels.append(row)
+        print(f"[kernels] {name}: {n} launches, device {ms:.4f} ms per pair "
+              f"({ms / max(n, 1):.4f} per launch), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), host "
+              f"{r['host_us']:.1f} us per call/launch, event-bracketed "
+              f"{event:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    print(f"[kernels] card: {card}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

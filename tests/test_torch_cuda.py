@@ -7,10 +7,11 @@ machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1 planes within 1e-5 of each plane's max (det on the
-interior, see test_torch_sublevel.py); K2 angles within 1e-3 rad and 0
+interior for the tiled kernel, see test_torch_sublevel.py, and on the whole
+plane for the octave-resident kernel); K2 angles within 1e-3 rad and 0
 flipped descriptor bits; K4 and ``Matches`` exactly.  The 16.16 fixed
-flavours are integer arithmetic and are held exactly: K1's planes (det on
-the interior) against its plain version run on the card, for every
+flavours are integer arithmetic and are held exactly: K1's planes against
+its plain version run on the card, for every
 diffusivity (the kernel's ``expf`` is PyTorch's CUDA ``exp`` bit for bit;
 PyTorch's CPU ``exp`` is not, so PM_G1 and WEICKERT are compared on one
 device), and the fixed pipeline's keypoints, words and ``Matches`` against
@@ -30,7 +31,8 @@ from akaze_tpu_torch.detect import build_padded_pyramid, detect_keypoints
 from akaze_tpu_torch.ops import describe as k2
 from akaze_tpu_torch.ops import hamming as k4
 from akaze_tpu_torch.ops import sublevel as k1
-from akaze_tpu_torch.ops.conv import lowpass, lowpass_fixed
+from akaze_tpu_torch.ops.conv import (down_with_smooth, down_with_smooth_fixed,
+                                     lowpass, lowpass_fixed)
 from akaze_tpu_torch.scale_space import OctaveData, build_scale_space
 
 TOL = 1e-5
@@ -109,10 +111,11 @@ def test_sublevel_kernel_matches_plain(cuda, case, diffusivity):
 
 
 def assert_planes_close(got, want, step, names=("L", "det", "lx", "ly")):
-    m = 2 * step + 2
+    """det on the interior (``step``), or on the whole plane (None)."""
+    m = 0 if step is None else 2 * step + 2
     for name, g, w in zip(names, got, want):
         g, w = g.cpu(), w.cpu()
-        if name == "det":
+        if name == "det" and m:
             g, w = g[..., m:-m, m:-m], w[..., m:-m, m:-m]
         scale = max(float(w.abs().max()), 1e-6)
         assert float((g - w).abs().max()) <= TOL * scale, name
@@ -147,17 +150,18 @@ def test_fixed_sublevel_kernel_matches_plain(cuda, case, diffusivity):
 
 @pytest.mark.cuda
 def test_five_octaves_of_a_large_image(cuda, monkeypatch):
-    """noctaves=5 at 1280x1920: the fifth octave's FED chains (34-57 steps)
-    exceed one launch's halo and are split.  Each of the scale space's K1
-    calls equals its plain version on the same inputs, and the pair path
+    """noctaves=5 at 1280x1920: octaves 0-2 take the tiled kernel, octaves
+    3-4 the resident one, whose FED chains of up to 57 steps run unsplit:
+    4 + 4 + 4 + 1 + 1 = 14 launches.  Each of the scale space's K1 calls
+    equals its plain version on the same inputs, and the pair path
     recovers a known shift.
 
-    Lx, Ly and det are held to 1e-5 of the plane max.  So is L, except
-    where the FED chain itself is ill-conditioned in float32 (the 40-step
-    chain of octave 4, sublevel 1 moves by ~6e-4 for a 1e-7 relative change
-    of its input): there K1's L must lie no further from a float64
-    evaluation of the plain version than 4x the float32 plain version
-    does."""
+    Lx, Ly and det are held to 1e-5 of the plane max (det on the whole
+    plane in resident octaves).  So is L, except where the FED chain itself
+    is ill-conditioned in float32 (the 40-step chain of octave 4, sublevel
+    1 moves by ~6e-4 for a 1e-7 relative change of its input): there K1's
+    L must lie no further from a float64 evaluation of the plain version
+    than 4x the float32 plain version does."""
     import akaze_tpu_torch.scale_space as ss
     h, w = 1280, 1920
     coarse = texture((h + SHIFT[0]) // 4 + 2, (w + SHIFT[1]) // 4 + 2, seed=5)
@@ -172,40 +176,45 @@ def test_five_octaves_of_a_large_image(cuda, monkeypatch):
     plan = det.plan_for(h, w)
     assert len(plan.octaves) == 5
     assert max(len(sp.taus) for sp in plan.octaves[4].scales) > 29
+    resident = [o.octave for o in plan.octaves
+                if k1.routes_resident(o, (2.56, 4) if o.octave == 0 else None)]
+    assert resident == [3, 4]
 
     calls = []
 
     def recording(*args, **kw):
         calls.append((args, kw))
-        return k1.sublevel(*args, **kw)
+        return k1.octave(*args, **kw)
 
     with monkeypatch.context() as mp:
-        mp.setattr(ss, "sublevel", recording)
+        mp.setattr(ss, "octave", recording)
         build_scale_space(torch.from_numpy(a).to(cuda), plan)
-    assert len(calls) == 20
-    split = 0
-    for (src, ikc, taus, step), kw in calls:
-        split += len(k1.chain_launches(taus, step)) > 1
-        got = k1.sublevel(src, ikc, taus, step, **kw)
-        want = k1.sublevel_plain(src, ikc, taus, step, **kw)
+    assert len(calls) == 5
+    for o, ((src, ikc, op), kw) in zip(plan.octaves, calls):
+        got = k1.octave(src, ikc, op, **kw)
+        want = k1.octave_plain(src, ikc, op, **kw)
         kw64 = {k: v.double() if isinstance(v, torch.Tensor) else v
                 for k, v in kw.items()}
-        exact = k1.sublevel_plain(src.double(), ikc.double(), taus, step,
-                                  **kw64)[0]
-        plain_err = float((want[0].double() - exact).abs().max())
-        got_err = float((got[0].double() - exact).abs().max())
-        scale = float(exact.abs().max())
-        assert got_err <= max(TOL * scale, 4 * plain_err), (step, len(taus))
-        assert_planes_close(got[1:], want[1:], step, ("det", "lx", "ly"))
-        if plain_err < 0.1 * TOL * scale:      # a well-conditioned chain
-            assert_planes_close(got[:1], want[:1], step, ("L",))
-    assert split == 4
+        exact = k1.octave_plain(src.double(), ikc.double(), op, **kw64)[0]
+        for s, sp in enumerate(o.scales):
+            step = None if o.octave in resident else sp.sigma_size
+            plain_err = float((want[0][:, s].double()
+                               - exact[:, s]).abs().max())
+            got_err = float((got[0][:, s].double() - exact[:, s]).abs().max())
+            scale = float(exact[:, s].abs().max())
+            assert got_err <= max(TOL * scale, 4 * plain_err), (o.octave, s)
+            assert_planes_close([p[:, s] for p in got[1:]],
+                                [p[:, s] for p in want[1:]], step,
+                                ("det", "lx", "ly"))
+            if plain_err < 0.1 * TOL * scale:      # a well-conditioned chain
+                assert_planes_close(got[0][:, s:s + 1], want[0][:, s:s + 1],
+                                    step, ("L",))
 
-    before = k1.sublevel.launches
+    before = k1.launches()
     fa, fb = det.detect_and_compute_pair(a, b)
     m = det.match(fa, fb)
     torch.cuda.synchronize()
-    assert k1.sublevel.launches - before == 24     # 20 sublevels, 4 split
+    assert k1.launches() - before == 14     # 4 + 4 + 4 + 1 + 1
     n = int(fa.count)
     acc = m.index[:n] >= 0
     dx = (m.match_x[:n] - fa.x[:n])[acc].cpu().numpy()
@@ -217,6 +226,109 @@ def test_five_octaves_of_a_large_image(cuda, monkeypatch):
     assert abs(np.median(dy) + SHIFT[0]) < 0.1
     inliers = (np.abs(dx + SHIFT[1]) < 1.5) & (np.abs(dy + SHIFT[0]) < 1.5)
     assert inliers.mean() > 0.85
+
+
+def _octave_inputs(cuda, fixed, h=160, w=200):
+    """The inputs of both octaves of a 160x200 two-octave plan (both
+    resident): octave 0 from the image with the base smooth, octave 1 from
+    the decimated last L with its smooth."""
+    plan = build_plan(h, w, AkazeConfig(max_pts=512, noctaves=2))
+    if fixed:
+        src = torch.from_numpy(np.stack(raw_pair(h, w)).astype(np.int32))
+        ikc = 1.0 / torch.tensor([37 * 37, 52 * 52], dtype=torch.int32).float()
+    else:
+        src = torch.from_numpy(np.stack(pair(h, w)))
+        ikc = torch.tensor([9.0, 14.0])
+    src, ikc = src.to(cuda), ikc.to(cuda)
+    first = k1.octave_plain(src, ikc, plan.octaves[0], base=(2.56, 4),
+                            fixed=fixed)
+    down = (down_with_smooth_fixed if fixed else down_with_smooth)(
+        first[0][:, -1])
+    return plan, [(src, dict(base=(2.56, 4))),
+                  (down[0], dict(smooth=down[1]))], ikc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+@pytest.mark.parametrize("diffusivity", list(Diffusivity))
+def test_octave_kernel_matches_plain(cuda, diffusivity, fixed):
+    """The octave-resident kernel against the plain version on the card,
+    every plane of every sublevel, det on the whole plane; float within
+    1e-5 of each plane's max, fixed bit-exact (PM_G1 and WEICKERT too:
+    both sides take CUDA's exp)."""
+    plan, inputs, ikc = _octave_inputs(cuda, fixed)
+    for op, (src, kw) in zip(plan.octaves, inputs):
+        assert k1.routes_resident(op, kw.get("base"))
+        kw.update(diffusivity=diffusivity, fixed=fixed)
+        want = k1.octave_plain(src, ikc, op, **kw)
+        before = (k1.octave.launches, k1.sublevel.launches)
+        got = k1.octave(src, ikc, op, **kw)
+        torch.cuda.synchronize()
+        assert (k1.octave.launches, k1.sublevel.launches) == (
+            before[0] + 1, before[1])
+        for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+            assert g.shape == w.shape == (2, 4, op.height, op.width)
+            if fixed:
+                d = (g.long() - w.long()).abs()
+                assert int(d.max()) == 0, (op.octave, name, int(d.max()))
+            else:
+                for s in range(g.shape[1]):
+                    scale = max(float(w[:, s].abs().max()), 1e-6)
+                    err = float((g[:, s] - w[:, s]).abs().max())
+                    assert err <= TOL * scale, (op.octave, name, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_small_plane_runs_on_the_resident_kernel(cuda, fixed):
+    """An 11x200 plane, too small for the tiled kernel's halo, runs on the
+    resident kernel and equals the plain version on every plane."""
+    img = texture(11, 200, seed=3)
+    plan = build_plan(11, 200, AkazeConfig(max_pts=64, noctaves=1))
+    op = plan.octaves[0]
+    last = op.scales[-1]
+    assert not k1.fused_supported(11, 200, last.taus, last.sigma_size)
+    src = torch.from_numpy(img[None])
+    if fixed:
+        src = (src * 255).to(torch.uint8).to(torch.int32)
+    src = src.to(cuda)
+    ikc = torch.tensor([11.0], device=cuda)
+    kw = dict(base=(2.56, 4), fixed=fixed)
+    want = k1.octave_plain(src, ikc, op, **kw)
+    before = k1.octave.launches
+    got = k1.octave(src, ikc, op, **kw)
+    torch.cuda.synchronize()
+    assert k1.octave.launches == before + 1
+    for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+        scale = max(float(w.abs().max()), 1e-6)
+        tol = 0 if fixed else TOL * scale
+        assert float((g.double() - w.double()).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, resident", [(120, 160, True),
+                                            (480, 640, False)])
+def test_octave_outputs_alias_one_stack(cuda, h, w, resident):
+    """K1 writes L, det, Lx and Ly straight into one [4, B, S, H, W]
+    allocation per octave (both kernels): the four planes are views of it,
+    and what the kernels wrote there equals the plain version."""
+    plan = build_plan(h, w, AkazeConfig(max_pts=512, noctaves=1))
+    op = plan.octaves[0]
+    assert k1.routes_resident(op, (2.56, 4)) == resident
+    src = torch.from_numpy(np.stack(pair(h, w))).to(cuda)
+    ikc = torch.tensor([9.0, 14.0], device=cuda)
+    got = k1.octave(src, ikc, op, base=(2.56, 4))
+    want = k1.octave_plain(src, ikc, op, base=(2.56, 4))
+    torch.cuda.synchronize()
+    base = got[0].untyped_storage().data_ptr()
+    for i, g in enumerate(got):
+        assert g.untyped_storage().data_ptr() == base
+        assert g.storage_offset() == i * g.numel()
+        assert g.is_contiguous() and g.shape == (2, 4, h, w)
+    for s, sp in enumerate(op.scales):
+        step = None if resident else sp.sigma_size
+        assert_planes_close([p[:, s] for p in got], [p[:, s] for p in want],
+                            step)
 
 
 @pytest.mark.cuda
@@ -323,13 +435,14 @@ def test_pipeline_on_card_matches_cpu(cuda):
     cpu = Akaze(cfg, device="cpu")
     ca, cb = cpu.detect_and_compute_pair(a, b)
     cm = cpu.match(ca, cb)
-    counters = (k1.sublevel, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
     before = [c.launches for c in counters]
     gpu = Akaze(cfg, device=cuda)
     ga, gb = gpu.detect_and_compute_pair(a, b)
     gm = gpu.match(ga, gb)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [8, 1, 1]
+    # octave 0 tiled (4 launches), octave 1 resident (1)
+    assert [c.launches - n for c, n in zip(counters, before)] == [4, 1, 1, 1]
     for c, g in ((ca, ga), (cb, gb)):
         n = int(c.count)
         assert int(g.count) == n > 20
@@ -354,13 +467,14 @@ def test_fixed_pipeline_on_card_matches_cpu(cuda, exact):
     cpu = Akaze(cfg, fixed=True, device="cpu")
     ca, cb = cpu.detect_and_compute_pair(a, b)
     cm = cpu.match(ca, cb)
-    counters = (k1.sublevel, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
     before = [c.launches for c in counters]
     gpu = Akaze(cfg, fixed=True, device=cuda)
     ga, gb = gpu.detect_and_compute_pair(a, b)
     gm = gpu.match(ga, gb)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [8, 1, 1]
+    # octave 0 tiled (4 launches), octave 1 resident (1)
+    assert [c.launches - n for c, n in zip(counters, before)] == [4, 1, 1, 1]
     for c, g in ((ca, ga), (cb, gb)):
         n = int(c.count)
         assert int(g.count) == n > 20

@@ -34,12 +34,12 @@ from akaze_tpu_torch import (Akaze, build_plan, config_from,
 from akaze_tpu_torch.descriptor import words_to_numpy
 from akaze_tpu_torch.ops.describe import describe
 from akaze_tpu_torch.ops.hamming import hamming_top2
-from akaze_tpu_torch.ops.sublevel import sublevel
+from akaze_tpu_torch.ops.sublevel import octave, sublevel
 
 torch.set_num_threads(1)
 
 SHIFT = (7, 13)
-COUNTERS = (sublevel, describe, hamming_top2)
+COUNTERS = (sublevel, octave, describe, hamming_top2)
 
 
 def _images(test_image):
@@ -59,7 +59,7 @@ def runs(test_image):
     plan = build_plan(*a.shape, config_from(dataclasses.asdict(jcfg)))
     for c in COUNTERS:
         c.launches = 0
-    tf = detect_and_compute_pair(a, b, plan)
+    tf = detect_and_compute_pair(a, b, plan, device="cpu")
     tm = match(tf[0].words, tf[0].valid, tf[1].words, tf[1].valid,
                tf[1].x, tf[1].y, plan.config.max_dist)
     return jf, jm, tf, tm, plan
@@ -121,13 +121,13 @@ def test_known_shift_recovered(runs):
 
 
 def test_cpu_path_launches_no_kernel(runs):
-    assert [c.launches for c in COUNTERS] == [0, 0, 0]
+    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
 
 
 def test_single_image_equals_pair(runs, test_image):
     _, _, tf, _, plan = runs
     for img, want in zip(_images(test_image), tf):
-        got = detect_and_compute(img, plan)
+        got = detect_and_compute(img, plan, device="cpu")
         for name in got._fields:
             torch.testing.assert_close(getattr(got, name),
                                        getattr(want, name), rtol=0, atol=0)
@@ -150,6 +150,32 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         Akaze(device="cuda")
+
+
+def test_entry_points_default_to_the_card(monkeypatch, test_image):
+    """``Akaze()`` and the module-level entry points put a numpy image on
+    the card; with no card they raise, unless the caller asks for the
+    CPU.  A tensor stays where it lies."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b = _images(test_image)
+    plan = build_plan(*a.shape, config_from({"max_pts": 64, "noctaves": 1}))
+    with pytest.raises(RuntimeError):
+        Akaze()
+    with pytest.raises(RuntimeError):
+        Akaze(plan.config, fixed=True)
+    with pytest.raises(RuntimeError):
+        detect_and_compute(a, plan)
+    with pytest.raises(RuntimeError):
+        detect_and_compute_pair(a, b, plan)
+    for c in COUNTERS:
+        c.launches = 0
+    det = Akaze(plan.config, device="cpu")
+    assert det.device.type == "cpu"
+    fa, fb = det.detect_and_compute_pair(a, b)
+    det.match(fa, fb)
+    got = detect_and_compute(torch.from_numpy(a), plan)
+    assert got.x.device.type == "cpu"
+    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
 
 
 
@@ -188,10 +214,10 @@ def fixed_runs(test_image):
         assert plan.config.fixed_descriptor_exact == (flavour == "exact")
         for c in COUNTERS:
             c.launches = 0
-        tf = detect_and_compute_pair(a, b, plan, fixed=True)
+        tf = detect_and_compute_pair(a, b, plan, fixed=True, device="cpu")
         tm = match(tf[0].words, tf[0].valid, tf[1].words, tf[1].valid,
                    tf[1].x, tf[1].y, plan.config.max_dist)
-        assert [c.launches for c in COUNTERS] == [0, 0, 0]
+        assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
         out[flavour] = (jf, jm, tf, tm, plan)
     return out
 

@@ -30,8 +30,11 @@ from akaze_tpu.plan import build_plan as jbuild_plan
 from akaze_tpu.scale_space import build_scale_space as jbuild_scale_space
 from akaze_tpu_torch import build_plan, config_from
 from akaze_tpu_torch.config import Diffusivity
+from akaze_tpu_torch.ops import sublevel as k1
 from akaze_tpu_torch.ops.sublevel import (MAX_HALO, chain_launches,
                                           fused_supported, halo_for,
+                                          octave, octave_launches,
+                                          resident_fits, routes_resident,
                                           sublevel)
 from akaze_tpu_torch.scale_space import build_scale_space
 
@@ -158,6 +161,94 @@ def test_long_chains_split_into_launches(shape, noctaves, splits):
     assert extra == splits
 
 
+@pytest.mark.parametrize("shape, noctaves, resident, launches", [
+    ((960, 1280), 4, [3], 13),         # 4 + 4 + 4 + 1
+    ((1280, 1920), 5, [3, 4], 14),     # 4 + 4 + 4 + 1 + 1
+    ((256, 320), 2, [1], 5),           # the card tests' small pair: 4 + 1
+])
+def test_routing_rule_and_launch_counts(shape, noctaves, resident, launches):
+    """Which octaves run resident follows from the plan alone (a plane of
+    at most ``RESIDENT_MAX_PIXELS`` whose four working planes of each
+    CTA's band fit its shared memory), and so does the launch count of a
+    scale space."""
+    plan = build_plan(*shape, config_from({"noctaves": noctaves}))
+    bases = [(2.56, 4)] + [None] * (len(plan.octaves) - 1)
+    got = [o.octave for o, base in zip(plan.octaves, bases)
+           if routes_resident(o, base)]
+    assert got == resident
+    for o, base in zip(plan.octaves, bases):
+        reach = k1.octave_reach(o, base)
+        assert reach == 4       # step 4 of the last sublevel
+        rows = -(-o.height // k1.RESIDENT_CLUSTER) + 2 * reach
+        fits = (16 * rows * o.width + 4 * k1.MAX_OCTAVE_TAUS
+                <= k1.RESIDENT_CTA_BYTES
+                and o.height * o.width <= k1.RESIDENT_MAX_PIXELS)
+        assert (o.octave in got) == fits
+        assert fits == resident_fits(o.height, o.width, len(o.scales))
+    assert sum(octave_launches(o, base)
+               for o, base in zip(plan.octaves, bases)) == launches
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_cached_launch_arguments_equal_fresh(fixed):
+    """The launch arguments cached per octave plan equal a fresh
+    computation, for the resident and the tiled octaves."""
+    plan = build_plan(960, 1280, config_from({}))
+    for oi, o in enumerate(plan.octaves):
+        base = (2.56, 4) if oi == 0 else None
+        cached = k1.octave_setup(o, base, Diffusivity.PM_G2, fixed)
+        assert k1.octave_setup(o, base, Diffusivity.PM_G2, fixed) is cached
+        fresh = k1.build_octave_setup(o, base, Diffusivity.PM_G2, fixed)
+        assert cached.resident == fresh.resident == (oi == 3)
+        assert cached.shape == fresh.shape == (4, o.height, o.width)
+        if cached.resident:
+            np.testing.assert_array_equal(cached.params, fresh.params)
+            assert torch.equal(cached.factors, fresh.factors)
+            assert cached.factors.numel() == sum(len(sp.taus)
+                                                 for sp in o.scales)
+            continue
+        for a, b in zip(cached.tiled, fresh.tiled):
+            assert len(a) == len(b) == 1
+            for la, lb in zip(a, b):
+                np.testing.assert_array_equal(la.params, lb.params)
+        assert ([list(x) for x in cached.strides]
+                == [list(x) for x in fresh.strides])
+
+
+def test_stacked_plain_octave_equals_jax_op_path(test_image):
+    """``octave`` on the CPU (a loop of the plain version, stacked into one
+    [4, B, S, H, W] tensor) equals the JAX package's op path on every
+    plane, det included, border and all."""
+    pair = _pair(test_image)
+    jcfg = JConfig(max_pts=256, noctaves=2, pallas_scale_space="off")
+    want, _ = jbuild_scale_space(jnp.asarray(pair),
+                                 jbuild_plan(*pair.shape[1:], jcfg))
+    plan = build_plan(*pair.shape[1:], config_from(jcfg.__dict__))
+    got, _ = build_scale_space(torch.from_numpy(pair), plan)
+    for og, ow in zip(got, want):
+        base = og.L.untyped_storage().data_ptr()
+        for i, name in enumerate(og._fields):
+            g = getattr(og, name)
+            # four views of one allocation, L first
+            assert g.untyped_storage().data_ptr() == base
+            assert g.storage_offset() == i * g.numel()
+            w = np.asarray(getattr(ow, name))
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=TOL * float(np.abs(w).max()),
+                                       err_msg=name)
+
+
+def test_octave_rejects_bad_input():
+    plan = build_plan(64, 80, config_from({"noctaves": 1}))
+    x = torch.zeros((1, 64, 80))
+    with pytest.raises(ValueError):
+        octave(x[0], torch.ones(1), plan.octaves[0])
+    with pytest.raises(TypeError):
+        octave(x.int(), torch.ones(1), plan.octaves[0])
+    with pytest.raises(ValueError):
+        octave(x, torch.ones(2), plan.octaves[0])
+
+
 def test_sublevel_rejects_bad_input():
     x = torch.zeros((1, 40, 50))
     with pytest.raises(ValueError):
@@ -197,13 +288,17 @@ def test_cpu_path_launches_no_kernel(scale_spaces):
 
 
 def test_small_plane_takes_op_path(test_image):
-    """A plane no larger than the halo takes the op path; the result still
-    matches the JAX package's op path, det included, border and all."""
+    """A plane no larger than the tiled kernel's halo: the JAX package
+    takes its op path; on the card the port runs it on the resident kernel
+    (whose det equals the op path on the whole plane), on the CPU its plain
+    version.  The result matches the JAX op path, det included, border and
+    all."""
     img = test_image[:11, :200]
     jcfg = JConfig(max_pts=64, noctaves=1, pallas_scale_space="off")
     plan = build_plan(*img.shape, config_from(jcfg.__dict__))
     last = plan.octaves[0].scales[-1]
     assert not fused_supported(*img.shape, last.taus, last.sigma_size)
+    assert routes_resident(plan.octaves[0], (2.56, 4))
     got, kc_got = build_scale_space(torch.from_numpy(img), plan)
     want, kc_want = jbuild_scale_space(jnp.asarray(img),
                                        jbuild_plan(*img.shape, jcfg))

@@ -73,7 +73,7 @@ TOL = 1e-5
 REPS = 20           # timed pair iterations; the median is the metric
 HOST_CALLS = 20     # wrapper calls per host-time measurement
 PROFILE_REPS = 3    # profiled main-path pair iterations
-# NVIDIA H100 SXM peaks (on-chip-measurement guide): device memory,
+# NVIDIA H100 SXM published peaks: device memory,
 # float32 outside the tensor cores (also taken for K1's int32 flavour),
 # int8 tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12

@@ -33,6 +33,10 @@ from .. import _build
 from ..descriptor import WSIZE, _descriptor_window, _orient_grid
 
 NCELLS = 29
+NBINS = 42      # orientation bins
+WINDOW = 7      # bins per orientation window (pi / 3)
+TAP_ORDERS = 32  # angle buckets of the kernel's MLDB tap order
+LOADS = 14 * 32  # the kernel's MLDB load rounds x lanes (csrc/describe.cu)
 H_PI = math.pi / 2.0
 BIN_SCALE = 21.0 / math.pi
 
@@ -45,11 +49,21 @@ _ATAN_COEFS = (9.9999999814e-01, -3.3333292795e-01, 1.9998532540e-01,
 
 
 class DescribeTables(NamedTuple):
-    """Static sampling tables of K2 on one device."""
+    """Static sampling tables of K2 on one device.  ``cells`` is the one
+    encoding of cell membership: the plain version gathers by it, and the
+    kernel's ``lane_taps`` is derived from it.  ``window`` and
+    ``tap_order`` serve only the kernel."""
     orient_w: torch.Tensor   # [121] f32 disc weights (0 outside r^2 < 36)
     lof: torch.Tensor        # [T] f32 tap column offsets l
     kof: torch.Tensor        # [T] f32 tap row offsets k
     cells: torch.Tensor      # [T, 3] int32 cell of the tap per grid, or -1
+    lane_taps: torch.Tensor  # [M, 32] int16: step i, lane c: the i-th tap
+    #                          of cell c, ascending; padded with T (a zero
+    #                          tap), lanes 29-31 all T
+    window: torch.Tensor     # [42, 7] int32: bin (b + d) % 42 of window b
+    tap_order: torch.Tensor  # [32, LOADS] int16: the taps at the angle of
+    #                          bucket q ((q + 0.5) pi / 16), by rotated
+    #                          half-row band, then column; padded with T
 
 
 @lru_cache(maxsize=None)
@@ -60,12 +74,25 @@ def describe_tables(patsize: int, device) -> DescribeTables:
     for grid, (lo, hi) in enumerate(((0, 4), (4, 13), (13, NCELLS))):
         t, c = np.nonzero(M[:, lo:hi])
         cells[t, grid] = c + lo
+    members = cell_members(torch.from_numpy(cells))            # [29, M]
+    lane_taps = torch.full((members.shape[1], 32), ntaps, dtype=torch.int16)
+    lane_taps[:, :NCELLS] = members.T
+    window = (np.arange(NBINS)[:, None] + np.arange(WINDOW)) % NBINS
+    tap_order = np.full((TAP_ORDERS, LOADS), ntaps, np.int16)
+    for q in range(TAP_ORDERS):
+        th = (q + 0.5) * 2 * math.pi / TAP_ORDERS
+        ys = k * math.sin(th) + l * math.cos(th)
+        xs = k * math.cos(th) - l * math.sin(th)
+        tap_order[q, :ntaps] = np.lexsort((xs, np.round(2 * ys)))
     dev = torch.device(device)
     return DescribeTables(
         orient_w=torch.as_tensor(_orient_grid().reshape(-1), device=dev),
         lof=torch.as_tensor(l.astype(np.float32), device=dev),
         kof=torch.as_tensor(k.astype(np.float32), device=dev),
-        cells=torch.as_tensor(cells, device=dev))
+        cells=torch.as_tensor(cells, device=dev),
+        lane_taps=lane_taps.to(dev),
+        window=torch.as_tensor(window.astype(np.int32), device=dev),
+        tap_order=torch.as_tensor(tap_order, device=dev))
 
 
 def cell_members(cells: torch.Tensor) -> torch.Tensor:
@@ -194,8 +221,10 @@ def _launch(iparams, fparams, planes, tables, fixed):
             *(_build.ptr(pl) for pl in planes), _build.ptr(iparams),
             _build.ptr(fparams), _build.ptr(tables.orient_w),
             _build.ptr(tables.lof), _build.ptr(tables.kof),
-            _build.ptr(tables.cells), _build.ptr(angle), _build.ptr(acc),
-            n, hp, wp, tables.lof.shape[0], int(fixed),
+            _build.ptr(tables.lane_taps), _build.ptr(tables.tap_order),
+            _build.ptr(tables.window),
+            _build.ptr(angle), _build.ptr(acc), n, hp, wp,
+            tables.lof.shape[0], tables.lane_taps.shape[0], int(fixed),
             _build.stream_of(iparams))
     _build.check(err, "describe_kernel")
     describe.launches += 1

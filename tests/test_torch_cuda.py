@@ -393,6 +393,148 @@ def test_fixed_describe_kernel_matches_plain(cuda):
                      finish_descriptors(want[1])).max() == 0
 
 
+# K2 on hand-made slots: (plane, y0, x0, oy, ox, iscale, live, yf, xf), the
+# window-local geometry that descriptor.slot_params produces
+def _k2_planes(cuda, fixed, L, lx, ly):
+    """[P, H, W] numpy planes as K2 takes them: bf16, or f32 integers (the
+    fixed flavour; the values are scaled to 16.16)."""
+    if fixed:
+        return tuple(torch.from_numpy(np.round(p * 65536).astype(np.float32))
+                     .to(cuda) for p in (L, lx, ly))
+    return tuple(torch.from_numpy(p.astype(np.float32)).to(cuda)
+                 .to(torch.bfloat16) for p in (L, lx, ly))
+
+
+def _k2_case(cuda, fixed, planes, slots):
+    """The kernel against its plain version, both on the card: angles within
+    1e-3 rad and 0 flipped bits on live slots, zeros on dead ones.  Returns
+    the plain version's angles."""
+    s = np.asarray(slots, np.float64)
+    ip = torch.zeros((len(slots), 8), dtype=torch.int32)
+    ip[:, :7] = torch.from_numpy(s[:, :7].astype(np.int32))
+    fp = torch.from_numpy(s[:, 7:9].astype(np.float32))
+    ip, fp = ip.to(cuda), fp.to(cuda)
+    tables = k2.describe_tables(10, cuda)
+    want = k2.describe_plain(ip, fp, planes, tables, fixed)
+    before = k2.describe.launches
+    got = k2.describe(ip, fp, planes, tables, fixed)
+    torch.cuda.synchronize()
+    assert k2.describe.launches == before + 1
+    live = ip[:, 6] > 0
+    d = (got[0] - want[0]).abs()
+    d = torch.minimum(d, 2 * np.pi - d)[live]
+    flips = bit_flips(finish_descriptors(got[1]),
+                      finish_descriptors(want[1]))[live.cpu().numpy()]
+    print(f"K2 {'fixed' if fixed else 'float'}: {int(live.sum())} live of "
+          f"{len(slots)}, max angle err {float(d.max())}, max cell-sum "
+          f"difference {float((got[1] - want[1]).abs().max())}")
+    assert float(d.max()) < 1e-3
+    assert flips.max() == 0
+    assert (got[0][~live] == 0).all() and (got[1][~live] == 0).all()
+    return want[0].cpu().numpy()
+
+
+def _random_planes(cuda, fixed, shape, seed):
+    rng = np.random.default_rng(seed)
+    return _k2_planes(cuda, fixed, rng.uniform(0, 1, shape),
+                      rng.normal(0, 0.1, shape), rng.normal(0, 0.1, shape))
+
+
+def _random_slots(rng, n, isc, plane=0, y0=0, x0=0, live=None):
+    oy, ox = rng.integers(24, 104, (2, n))
+    sub = rng.uniform(-0.5, 0.5, (2, n))
+    live = np.ones(n, bool) if live is None else live
+    return [(plane, y0, x0, oy[i], ox[i], isc, int(live[i]),
+             oy[i] + sub[0, i], ox[i] + sub[1, i]) for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_describe_orientation_ties(cuda, fixed):
+    """Two taps of equal weight whose gradients have exactly equal
+    magnitude put equal maxima in windows of different angle; the first
+    maximum (the lowest window) must win, also when the two windows are a
+    lane's two bins (b and b + 32)."""
+    L, lx, ly = (np.zeros((2, 160, 160)) for _ in range(3))
+    y0 = x0 = 16
+    c = 64 + 16          # the slots' centre pixel, iscale 2: taps 6 px apart
+    # plane 0: (1, 0) at (0, +3) (bin 21, windows 15-21) and (0, 1) at
+    # (+3, 0) (bin 31, windows 25-31): window 15 wins, angle 0
+    lx[0, c, c + 6] = 1.0
+    ly[0, c + 6, c] = 1.0
+    # plane 1: mirror images (bins 5 and 37): windows 0-5 tie with 32-37
+    lx[1, c, c + 6], ly[1, c, c + 6] = -0.78125, -0.625
+    lx[1, c, c - 6], ly[1, c, c - 6] = -0.78125, 0.625
+    planes = _k2_planes(cuda, fixed, L, lx, ly)
+    slots = [(p, y0, x0, 64, 64, 2, 1, 64.2, 63.9) for p in (0, 1)]
+    angle = _k2_case(cuda, fixed, planes, slots)
+    assert abs(angle[0]) < 1e-6
+    first = 2 * np.pi + np.arctan2(-0.625, -0.78125)
+    assert abs(angle[1] - first) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_describe_flat_planes(cuda, fixed):
+    """Zero gradients: every tap falls in one bin with zero sums, every
+    window ties at 0, the angle is 0."""
+    shape = (1, 128, 128)
+    planes = _k2_planes(cuda, fixed, np.full(shape, 0.5), np.zeros(shape),
+                        np.zeros(shape))
+    rng = np.random.default_rng(11)
+    angle = _k2_case(cuda, fixed, planes, _random_slots(rng, 9, 3))
+    assert (angle == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_describe_taps_leave_the_window(cuda, fixed):
+    """Centres at each corner of a window lying inside a larger plane of
+    non-zero values: the taps outside the window read 0, not the plane."""
+    planes = _random_planes(cuda, fixed, (2, 300, 320), 12)
+    slots = []
+    for isc in (2, 4):
+        for oy, ox in ((1, 2), (2, 126), (125, 1), (126, 125), (64, 0)):
+            slots.append((1, 100, 120, oy, ox, isc, 1, oy + 0.3, ox - 0.4))
+    _k2_case(cuda, fixed, planes, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_describe_largest_iscale(cuda, fixed):
+    """The largest iscale the 960x1280 plan produces (its largest sigma
+    size, rounded)."""
+    from akaze_tpu_torch.detect import size_table_for
+    isc = max(int(s + 0.5) for s in size_table_for(
+        build_plan(960, 1280, AkazeConfig())))
+    assert isc >= 4
+    planes = _random_planes(cuda, fixed, (3, 200, 240), 13)
+    rng = np.random.default_rng(13)
+    slots = [s for p in range(3)
+             for s in _random_slots(rng, 12, isc, p, 30, 50)]
+    _k2_case(cuda, fixed, planes, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_describe_dead_slots_interleaved(cuda, fixed):
+    planes = _random_planes(cuda, fixed, (2, 160, 192), 14)
+    rng = np.random.default_rng(14)
+    live = rng.random(64) < 0.5
+    live[:2] = (False, True)
+    slots = _random_slots(rng, 64, 3, 1, 10, 40, live)
+    _k2_case(cuda, fixed, planes, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 131])
+def test_describe_slot_count_not_a_block_multiple(cuda, fixed, n):
+    planes = _random_planes(cuda, fixed, (1, 128, 128), 15)
+    _k2_case(cuda, fixed, planes,
+             _random_slots(np.random.default_rng(n), n, 2))
+
+
 @pytest.mark.cuda
 def test_hamming_kernel_matches_plain(cuda):
     rng = np.random.default_rng(6)

@@ -166,6 +166,99 @@ def test_cpu_path_launches_no_kernel(described):
     assert tdescribe.describe.launches == 0
 
 
+@pytest.mark.parametrize("patsize", [10, 8])
+def test_lane_taps_reproduce_cell_membership(patsize):
+    """K2's per-cell tap lists: lane c walks exactly the taps of cell c in
+    the JAX package's window table, ascending, then the zero tap T; lanes
+    29-31 walk only T; every tap is in some cell."""
+    _, _, member = jdesc._descriptor_window(patsize)
+    ntaps = member.shape[0]
+    lanes = tdescribe.describe_tables(patsize, "cpu").lane_taps.numpy()
+    assert lanes.shape == (int(member.sum(0).max()), 32)
+    covered = set()
+    for c in range(32):
+        col = lanes[:, c].astype(np.int64)
+        want = (np.nonzero(member[:, c])[0] if c < tdescribe.NCELLS
+                else np.zeros(0, np.int64))
+        np.testing.assert_array_equal(col[:len(want)], want)
+        assert (np.diff(want) > 0).all()
+        assert (col[len(want):] == ntaps).all()
+        covered.update(want.tolist())
+    assert covered == set(range(ntaps))
+
+
+@pytest.mark.parametrize("patsize", [10, 8])
+def test_tap_order_is_a_permutation_per_angle_bucket(patsize):
+    """Each angle bucket's MLDB load order holds every tap once, then the
+    zero tap T up to 14 rounds of 32 lanes."""
+    tables = tdescribe.describe_tables(patsize, "cpu")
+    ntaps = tables.lof.shape[0]
+    order = tables.tap_order.numpy()
+    assert order.shape == (tdescribe.TAP_ORDERS, tdescribe.LOADS)
+    for row in order:
+        np.testing.assert_array_equal(np.sort(row[:ntaps]), np.arange(ntaps))
+        assert (row[ntaps:] == ntaps).all()
+
+
+def test_window_table_wraps():
+    window = tdescribe.describe_tables(10, "cpu").window.numpy()
+    b, d = np.meshgrid(np.arange(42), np.arange(7), indexing="ij")
+    np.testing.assert_array_equal(window, (b + d) % 42)
+
+
+@pytest.mark.parametrize("patsize", [10, 8])
+def test_table_sum_order_is_the_plain_versions(patsize):
+    """Sums taken the kernel's way (the lane lists step by step from 0, the
+    window table d = 0..6) equal the plain version's bit for bit on seeded
+    float32 values: cell sums as ``describe_plain`` groups them
+    (``cell_members``), window sums as its rolls add them."""
+    tables = tdescribe.describe_tables(patsize, "cpu")
+    ntaps = tables.lof.shape[0]
+    rng = np.random.default_rng(7)
+    taps = torch.from_numpy(rng.standard_normal((64, ntaps + 1, 3))
+                            .astype(np.float32))
+    taps[:, ntaps] = 0.0
+    grouped = taps[:, tdescribe.cell_members(tables.cells)]
+    want = grouped[:, :, 0]
+    for j in range(1, grouped.shape[2]):
+        want = want + grouped[:, :, j]
+    got = torch.zeros((64, 32, 3))
+    for step in tables.lane_taps.long():
+        got = got + taps[:, step]
+    assert torch.equal(got[:, :tdescribe.NCELLS], want)
+
+    res = torch.from_numpy(rng.standard_normal((64, 42)).astype(np.float32))
+    want = res
+    for d in range(1, 7):
+        want = want + torch.roll(res, -d, 1)
+    got = torch.zeros_like(res)
+    for d in range(7):
+        got = got + res[:, tables.window[:, d].long()]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_plain_version_on_fixtures_unchanged(described, described_fixed,
+                                             fixed):
+    """``describe_plain`` with the grown tables still gives the JAX
+    package's angles and words on the fixtures' live slots, and zeros on
+    the dead ones."""
+    ref, _, kps_t, pp, plan = described_fixed if fixed else described
+    nplanes = pp.L.shape[0] // 2
+    tables = tdescribe.describe_tables(10, "cpu")
+    for i, (r, k) in enumerate(zip(ref, kps_t)):
+        n, angle, words = r[:3]
+        ip, fp = tdesc.slot_params(k, pp, plan, plane_base=i * nplanes,
+                                   nplanes=nplanes)
+        t_angle, acc = tdescribe.describe_plain(
+            ip, fp, (pp.L, pp.lx, pp.ly), tables, fixed)
+        assert (circular(t_angle.numpy()[:n], angle[:n]) < 1e-3).all()
+        flips = bit_flips(tdesc.words_to_numpy(
+            tdesc.finish_descriptors(acc))[:n], words[:n])
+        assert flips.max() == 0
+        assert (t_angle[n:] == 0).all() and (acc[n:] == 0).all()
+
+
 def test_describe_rejects_bad_input(described):
     _, _, kps_t, pp, plan = described
     ip, fp = tdesc.slot_params(kps_t[0], pp, plan)

@@ -43,7 +43,7 @@ SIGNATURES = {
                        _I, _VP],
     "akaze_octave": [_VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "akaze_describe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+                       _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                            _VP],
 }

@@ -60,8 +60,9 @@ class AkazeConfig:
     # ``banded_windows``) say: where the JAX package's kernel and XLA
     # paths compute the same results, only the delivery differs.  Two
     # settings change results, and the port follows them:
-    #   * ``bf16_sampling``: only True (bf16 float-path descriptor planes)
-    #     is implemented; False is refused.
+    #   * ``bf16_sampling``: the float path's descriptor samples bf16
+    #     planes, or float32 planes when False, as the JAX package's XLA
+    #     float path does.  The fixed path ignores it.
     #   * the fixed (16.16) path's descriptor flavour.  The JAX kernel path
     #     (which "auto" takes on a TPU) samples bf16 planes with the float
     #     kernel ("approximate"), and so does the port by default; ``fixed_exact_sampling=True`` gives the
@@ -94,9 +95,6 @@ class AkazeConfig:
             raise ValueError("max_scale must be in [1, 5]")
         if self.noctaves < 1:
             raise ValueError("noctaves must be >= 1")
-        if not self.bf16_sampling:
-            raise ValueError("the port samples bf16 planes only: "
-                             "bf16_sampling must be True")
         for field in ("pallas_descriptor", "pallas_scale_space"):
             if getattr(self, field) not in ("auto", "on", "interpret",
                                             "off"):

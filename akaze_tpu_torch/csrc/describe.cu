@@ -9,7 +9,8 @@
 // in the [P, Hp, Wp] plane stacks.
 //
 // Two flavours, one body templated on the plane type P and FIXED:
-//   float (bf16 planes): as described below;
+//   float (bf16 planes, or f32 planes when bf16_sampling is off): as
+//     described below;
 //   fixed (f32 planes holding the 16.16 path's integers; the bit-faithful
 //     fastakaze descriptor, pallas_describe.py:901,1031-1059): the bins
 //     take the fast polynomial atan2 of each tap, and each tap's (Lx, Ly)
@@ -390,8 +391,8 @@ void launch(const void* L, const void* Lx, const void* Ly,
 
 }  // namespace
 
-// Planes: three [P, Hp, Wp] device arrays, bf16 (float flavour) or float32
-// (fixed flavour, `fixed` != 0).  iparams [N, 8] int32,
+// Planes: three [P, Hp, Wp] device arrays, float32 when `f32` != 0, else
+// bf16; the fixed flavour (`fixed` != 0) takes float32.  iparams [N, 8] int32,
 // fparams [N, 2] float32 (descriptor.slot_params).  Tables (device,
 // ops/describe.describe_tables): orient_w [121], lof/kof [ntaps] float32,
 // lane_taps [steps, 32] int16 (step i, lane c: the i-th tap of cell c in
@@ -405,9 +406,9 @@ extern "C" int akaze_describe(const void* L, const void* Lx, const void* Ly,
                               const short* tap_order, const int* window,
                               float* angle, float* acc,
                               int N, int Hp, int Wp, int ntaps, int steps,
-                              int fixed, void* stream) {
+                              int fixed, int f32, void* stream) {
   if (N < 0 || ntaps < 1 || ntaps > MAX_TAPS || steps < 1 ||
-      steps > MAX_TAPS || Hp < WS || Wp < WS)
+      steps > MAX_TAPS || Hp < WS || Wp < WS || (fixed && !f32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -415,6 +416,10 @@ extern "C" int akaze_describe(const void* L, const void* Lx, const void* Ly,
     launch<float, true>(L, Lx, Ly, iparams, fparams, orient_w, lof, kof,
                         lane_taps, tap_order, window, angle, acc, N, Hp, Wp,
                         ntaps, steps, s);
+  else if (f32)
+    launch<float, false>(L, Lx, Ly, iparams, fparams, orient_w, lof, kof,
+                         lane_taps, tap_order, window, angle, acc, N, Hp, Wp,
+                         ntaps, steps, s);
   else
     launch<__nv_bfloat16, false>(L, Lx, Ly, iparams, fparams, orient_w, lof,
                                  kof, lane_taps, tap_order, window, angle,

@@ -181,15 +181,19 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32)
 
 
+@lru_cache(maxsize=None)
+def _compare_index_tensors(device: torch.device):
+    """``_compare_indices`` as int64 tensors on ``device``, copied once."""
+    return tuple(torch.as_tensor(i, dtype=torch.int64, device=device)
+                 for i in _compare_indices())
+
+
 def finish_descriptors(acc: torch.Tensor) -> torch.Tensor:
     """Cell sums [N, 87] -> descriptor words [N, 16]: bit t is
     ``acc[i1[t]] > acc[i2[t]]`` (``_finish_descriptors``; a gather and a
     compare, so no matrix product and no TF32)."""
-    i1, i2 = _compare_indices()
-    dev = acc.device
-    a = acc[:, torch.as_tensor(i1, dtype=torch.int64, device=dev)]
-    b = acc[:, torch.as_tensor(i2, dtype=torch.int64, device=dev)]
-    return pack_bits(a > b)
+    i1, i2 = _compare_index_tensors(acc.device)
+    return pack_bits(acc[:, i1] > acc[:, i2])
 
 
 def descriptors_to_bytes(words: np.ndarray) -> np.ndarray:
@@ -210,9 +214,12 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
 
 def plane_dtype(plan: PipelinePlan, fixed: bool) -> torch.dtype:
     """Type of the descriptor's plane stack: float32 for the fixed path's
-    exact flavour (its integers are exact in float32), else bfloat16."""
-    exact = fixed and plan.config.fixed_descriptor_exact
-    return torch.float32 if exact else torch.bfloat16
+    exact flavour (its integers are exact in float32) and for the float
+    path with ``bf16_sampling=False`` (the JAX package's XLA float path,
+    pipeline.py:72-77 there), else bfloat16."""
+    f32 = (plan.config.fixed_descriptor_exact if fixed
+           else not plan.config.bf16_sampling)
+    return torch.float32 if f32 else torch.bfloat16
 
 
 def orient_describe_multi(kps_list: List[Keypoints], pp: PaddedPyramid,
@@ -225,7 +232,8 @@ def orient_describe_multi(kps_list: List[Keypoints], pp: PaddedPyramid,
     planes from ``i * nplanes``, of ``plane_dtype(plan, fixed)``.  On the
     fixed path the configuration picks K2's flavour
     (``AkazeConfig.fixed_descriptor_exact``): exact on float32 planes, or
-    the float flavour on bf16 planes.  Dead slots get angle 0 and zero
+    the float flavour on bf16 planes.  The float path takes the float
+    flavour on the planes it is given.  Dead slots get angle 0 and zero
     words.  Returns a list of (angle [N], words [N, 16] int32) per image.
     """
     from .ops.describe import describe, describe_tables
@@ -238,7 +246,7 @@ def orient_describe_multi(kps_list: List[Keypoints], pp: PaddedPyramid,
     fparams = torch.cat([p[1] for p in params])
     tables = describe_tables(plan.config.descriptor_pattern_size,
                              iparams.device)
-    exact = plane_dtype(plan, fixed) == torch.float32
+    exact = fixed and plan.config.fixed_descriptor_exact
     angle, acc = describe(iparams, fparams, (pp.L, pp.lx, pp.ly), tables,
                           fixed=exact)
     words = finish_descriptors(acc)

@@ -23,6 +23,7 @@ refinement arithmetic are integers.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, NamedTuple
 
 import torch
@@ -54,6 +55,16 @@ class Keypoints(NamedTuple):
 def pow2(o: torch.Tensor) -> torch.Tensor:
     """2 ** o as float32 for an integer tensor ``o`` (octave ratios)."""
     return torch.bitwise_left_shift(torch.ones_like(o), o).to(torch.float32)
+
+
+@lru_cache(maxsize=None)
+def const_table(values: tuple, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """A constant table on ``device``, built once per (values, type,
+    device).  Copying a host list to the card blocks the stream, so the
+    per-plan tables of a pair iteration are copied once and reused; callers
+    must not write into the result."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _pad_const(x, pad_y: int, pad_x: int, value):
@@ -88,8 +99,8 @@ def _extrema_candidates(det: torch.Tensor, oct_plan, threshold):
     cols = torch.arange(w, device=dev)[None, None, :]
 
     def bound(attr):
-        return torch.tensor([getattr(sp, attr) for sp in oct_plan.scales],
-                            device=dev)[:, None, None]
+        return const_table(tuple(getattr(sp, attr) for sp in oct_plan.scales),
+                           torch.int64, dev)[:, None, None]
 
     rect = ((rows >= bound("y_lo")) & (rows <= bound("y_hi"))
             & (cols >= bound("x_lo")) & (cols <= bound("x_hi")))
@@ -118,8 +129,8 @@ def build_extrema_maps(octaves: List[OctaveData], plan: PipelinePlan):
         # deterministic cross-scale winner: the lowest scale on ties
         best_s = torch.argmax(resp, dim=0)
         best = torch.gather(resp, 0, best_s[None])[0]
-        sizes = torch.tensor([sp.size for sp in oplan.scales],
-                             dtype=torch.float32, device=dev)
+        sizes = const_table(tuple(sp.size for sp in oplan.scales),
+                            torch.float32, dev)
         best_size = sizes[best_s]
         best_layer = (oi * cfg.max_scale + best_s).to(torch.int32)
 
@@ -216,15 +227,12 @@ def select_keypoints(mask, resp_full, layer_full, max_pts: int,
     idx = idx[:max_pts]
 
     total = mask.sum(dtype=torch.int32)
-    count = torch.minimum(torch.minimum(total, n_cand),
-                          torch.tensor(max_pts, dtype=torch.int32,
-                                       device=dev))
+    count = torch.minimum(total, n_cand).clamp(max=max_pts)
     overflow = (total > n_cand) | (total > max_pts)
     valid = torch.arange(max_pts, device=dev) < count
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     layer = layer_full.reshape(-1)[idx]
-    table = torch.tensor((0.0,) + tuple(size_table), dtype=torch.float32,
-                         device=dev)
+    table = const_table((0.0,) + tuple(size_table), torch.float32, dev)
     size = table[(layer + 1).clamp(0, len(size_table))]
     return Keypoints(
         x=(idx % w).to(torch.float32), y=(idx // w).to(torch.float32),
@@ -253,7 +261,7 @@ def refine_keypoints(kps: Keypoints, octaves: List[OctaveData],
         total += s * h * w
 
     def table(v):
-        return torch.tensor(v, dtype=torch.int64, device=dev)
+        return const_table(tuple(v), torch.int64, dev)
 
     layer = kps.layer.to(torch.int64)
     o = torch.div(layer, ms, rounding_mode="floor").clamp(min=0)
@@ -349,5 +357,5 @@ def build_padded_pyramid(octaves: List[OctaveData], wsize: int,
         i += s
     return PaddedPyramid(
         L=out[0], lx=out[1], ly=out[2],
-        widths=torch.tensor(ws, dtype=torch.int32, device=dev),
-        heights=torch.tensor(hs, dtype=torch.int32, device=dev))
+        widths=const_table(tuple(ws), torch.int32, dev),
+        heights=const_table(tuple(hs), torch.int32, dev))

@@ -6,11 +6,12 @@ outputs and differ only in how the TPU delivers windows to VMEM.  The CUDA
 kernel is ``csrc/describe.cu``; its header says what it computes, what
 bounds it on the card and what its design does about that.
 
-Two flavours, as in the JAX kernels: float (bf16 planes, the derivative
-cell sums rotated after summation) and the bit-faithful fixed flavour
-(``fixed=True``: float32 planes holding the 16.16 path's integers, the fast
-polynomial atan2 for the orientation bins, each tap's derivatives rotated
-and truncated to integers before the cell sums).
+Two flavours, as in the JAX kernels: float (the derivative cell sums
+rotated after summation), on bf16 planes or, with ``bf16_sampling=False``,
+on float32 planes, and the bit-faithful fixed flavour (``fixed=True``:
+float32 planes holding the 16.16 path's integers, the fast polynomial
+atan2 for the orientation bins, each tap's derivatives rotated and
+truncated to integers before the cell sums).
 
 ``describe`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``describe_plain``, which evaluates the same
@@ -209,7 +210,7 @@ def describe_plain(iparams, fparams, planes, tables: DescribeTables,
     return angle, acc
 
 
-def _launch(iparams, fparams, planes, tables, fixed):
+def _launch(iparams, fparams, planes, tables, fixed, f32):
     n = iparams.shape[0]
     _, hp, wp = planes[0].shape
     angle = torch.empty(n, dtype=torch.float32, device=iparams.device)
@@ -225,7 +226,7 @@ def _launch(iparams, fparams, planes, tables, fixed):
             _build.ptr(tables.window),
             _build.ptr(angle), _build.ptr(acc), n, hp, wp,
             tables.lof.shape[0], tables.lane_taps.shape[0], int(fixed),
-            _build.stream_of(iparams))
+            int(f32), _build.stream_of(iparams))
     _build.check(err, "describe_kernel")
     describe.launches += 1
     return angle, acc
@@ -239,11 +240,11 @@ def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
       iparams: [N, 8] int32 per slot (plane, y0, x0, oy, ox, iscale, live,
         0), from ``descriptor.slot_params``.
       fparams: [N, 2] float32 per slot (yf, xf), window-local.
-      planes: (L, Lx, Ly), each [P, Hp, Wp] with Hp, Wp >= 128: bfloat16,
-        or float32 for the fixed flavour.
+      planes: (L, Lx, Ly), each [P, Hp, Wp] with Hp, Wp >= 128, all of
+        one type: bfloat16 or float32 for the float flavour, float32 for
+        the fixed flavour.
       tables: ``describe_tables(patsize, device)``.
-      fixed: the bit-faithful fixed flavour; must agree with the planes'
-        type.
+      fixed: the bit-faithful fixed flavour.
 
     Returns (angle [N] float32 in [0, 2 pi), acc [N, 87] float32 with the
     cell sums at cell * 3 + channel, channels (L, rotated Lx, rotated Ly)).
@@ -257,7 +258,11 @@ def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
     if len(shape) != 3 or shape[1] < WSIZE or shape[2] < WSIZE:
         raise ValueError(f"planes must be [P, >={WSIZE}, >={WSIZE}], "
                          f"got {tuple(shape)}")
-    dtype = torch.float32 if fixed else torch.bfloat16
+    dtype = planes[0].dtype
+    if dtype not in ((torch.float32,) if fixed
+                     else (torch.bfloat16, torch.float32)):
+        raise TypeError(f"planes of {dtype} for the "
+                        f"{'fixed' if fixed else 'float'} flavour")
     for name, pl in zip(("L", "Lx", "Ly"), planes):
         _build.check_tensor(name, pl, dtype, shape, dev)
     for name in DescribeTables._fields:
@@ -266,7 +271,8 @@ def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
     if dev.type == "cpu":
         return describe_plain(iparams, fparams, planes, tables, bool(fixed))
     if dev.type == "cuda":
-        return _launch(iparams, fparams, planes, tables, bool(fixed))
+        return _launch(iparams, fparams, planes, tables, bool(fixed),
+                       dtype == torch.float32)
     raise ValueError(f"no describe kernel for device {dev}")
 
 

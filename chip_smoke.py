@@ -16,16 +16,22 @@ any disagreement:
      whole plane for resident octaves and on the interior for tiled ones;
   4. K2 (orientation + descriptor) against its plain version on the
      keypoints and pyramid of the 960x1280 pair: angles within 1e-3 rad,
-     flipped descriptor bits (must be 0);
-  5. K4 (Hamming top-2) against its plain version, 10000 x 10000 seeded
-     words with ~20% invalid rows and planted ties (a stress shape the main
-     path never has): ``Matches`` equal;
+     flipped descriptor bits (must be 0); the float flavour on bf16 planes
+     and, for ``bf16_sampling=False``, on f32 planes;
+  5. K4 (Hamming top-2 on the tensor cores) against its plain version,
+     10000 x 10000 seeded words with ~20% invalid rows and planted ties (a
+     stress shape the main path never has): all three outputs equal,
+     ``Matches`` equal;
   6. the main path, ``Akaze.detect_and_compute_pair`` + ``Akaze.match`` at
      960x1280, max_pts=10000, with the launch counters reset before and
      read after (K1 13 = 12 tiled + 1 resident, K2 1, K4 1); on the
      synthetic pair the known shift must be recovered with an inlier
      fraction > 0.85; K4 held against its plain version at the pair's own
-     live counts; a small pair must agree with the CPU plain pipeline;
+     live counts; a warm pair iteration under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); a small
+     pair must agree with the CPU plain pipeline; the same main path with
+     ``bf16_sampling=False`` (K2 on f32 planes); one image with
+     ``describe=False`` (K1 13 launches at B = 1, no K2, no K4);
   7. timings: each kernel's device time per launch and per pair from
      ``torch.profiler`` kernel durations over main-path pair iterations,
      the wrappers' host time per call (20 calls, no synchronisation), the
@@ -39,7 +45,8 @@ any disagreement:
      (exact, ``fixed_exact_sampling=True``, and approximate, the default),
      each with its launch counters reset before and read after, the shift
      recovered; a small pair of each flavour against the CPU plain
-     pipeline; and the same timings.
+     pipeline; no host sync in a warm pair iteration; and the same
+     timings.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -206,6 +213,18 @@ def device_kernels(torch, fn, reps: int = PROFILE_REPS) -> dict:
         ns, n = out.get(e.name(), (0, 0))
         out[e.name()] = (ns + e.duration_ns(), n + 1)
     return {k: (ns / reps / 1e6, n / reps) for k, (ns, n) in out.items()}
+
+
+def profiled(torch, fn, needles, reps: int = PROFILE_REPS) -> dict:
+    """``device_kernels`` of ``fn``, taken again (up to 3 times) while a
+    kernel named by one of ``needles`` is missing: the trace can drop
+    events."""
+    for _ in range(3):
+        prof = device_kernels(torch, fn, reps)
+        missing = [n for n in needles if not any(n in k for k in prof)]
+        if not missing:
+            return prof
+    fail(f"no {missing} kernel in 3 profiler traces")
 
 
 def kernel_time(profile: dict, needle: str):
@@ -379,18 +398,19 @@ def phase_k1(torch, images, plan, tag="K1"):
 
 
 def phase_k2(torch, images, plan, fixed=False, tag="K2"):
-    """K2 against its plain version on the pair's keypoints and pyramid;
-    ``fixed``: the fixed path's exact flavour (``plan`` must select it)."""
+    """K2 against its plain version on the pair's keypoints and pyramid, on
+    the planes ``plan`` gives; ``fixed``: the fixed path's exact flavour
+    (``plan`` must select it)."""
     from akaze_tpu_torch.descriptor import (finish_descriptors, plane_dtype,
                                             slot_params, words_to_numpy)
     from akaze_tpu_torch.ops.describe import (describe, describe_plain,
                                               describe_tables)
     from akaze_tpu_torch.pipeline import detect_batch
 
-    check(plane_dtype(plan, fixed) == (torch.float32 if fixed
-                                       else torch.bfloat16),
+    check(not fixed or plan.config.fixed_descriptor_exact,
           f"{tag}: the configuration selects another flavour")
     kps, pp = detect_batch(images, plan, fixed=fixed)
+    check(pp.L.dtype == plane_dtype(plan, fixed), f"{tag}: plane type")
     nplanes = pp.L.shape[0] // 2
     params = [slot_params(k, pp, plan, plane_base=i * nplanes,
                           nplanes=nplanes) for i, k in enumerate(kps)]
@@ -411,7 +431,8 @@ def phase_k2(torch, images, plan, fixed=False, tag="K2"):
     n_live = int(live.sum())
     angle_err = float(d.max())
     acc_err = float((c1 - c2).abs().max())
-    print(f"[{tag}] {n_live} live slots of {ip.shape[0]}: max angle err "
+    print(f"[{tag}] {pp.L.dtype} planes, {n_live} live slots of "
+          f"{ip.shape[0]}: max angle err "
           f"{angle_err:.3g} rad, max cell-sum err {acc_err:.3g}, flipped "
           f"bits max {int(flips.max()) if n_live else 0} mean "
           f"{float(flips.mean()) if n_live else 0.0:.4f}")
@@ -461,7 +482,8 @@ def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
     plain_ms = cuda_ms(torch, lambda: hamming_top2_plain(w1, w2, v2, c1, c2),
                        reps=plain_reps)
     host = host_us(torch, fn)
-    dev_ms, _ = kernel_time(device_kernels(torch, fn), "hamming_kernel")
+    dev_ms, _ = kernel_time(profiled(torch, fn, ("hamming_kernel",)),
+                            "hamming_kernel")
     nbytes = (n1 + n2) * 64 + n2 + 3 * 4 * w1.shape[0]
     bms, by = bound(nbytes, 2 * 486 * n1 * n2, INT8_TC_OPS_PER_S)
     print(f"[{tag}] device {dev_ms:.4f} ms (profiler); event-bracketed "
@@ -472,8 +494,9 @@ def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
                 plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
 
 
-def phase_k4(torch, dev):
-    """The 10000 x 10000 stress shape with planted ties."""
+def k4_stress_inputs(torch, dev):
+    """(w1, w2, v1, v2, x2, y2) of the 10000 x 10000 stress shape: seeded
+    words, near copies, planted ties, ~10% / ~20% invalid rows."""
     from akaze_tpu_torch.descriptor import pack_bits
 
     rng = np.random.default_rng(SEED + 4)
@@ -489,7 +512,12 @@ def phase_k4(torch, dev):
     v2 = torch.from_numpy(rng.random(n) > 0.2).to(dev)
     x2 = torch.from_numpy(rng.uniform(0, W, n).astype(np.float32)).to(dev)
     y2 = torch.from_numpy(rng.uniform(0, H, n).astype(np.float32)).to(dev)
-    r = k4_case(torch, "K4 stress", w1, w2, v1, v2, x2, y2)
+    return w1, w2, v1, v2, x2, y2
+
+
+def phase_k4(torch, dev):
+    """The 10000 x 10000 stress shape with planted ties."""
+    r = k4_case(torch, "K4 stress", *k4_stress_inputs(torch, dev))
     check(r["ties"] > 0, "no planted ties reached the matcher")
     return r
 
@@ -543,7 +571,7 @@ def phase_main(torch, det, a, b, shift, tag="main"):
         print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, "
               f"{np.median(dy)})")
         check(acc.sum() > 100, "too few accepted matches")
-        return launches, k4
+        return launches, k4, fa
     inl = (np.abs(dx + shift[1]) < 1.5) & (np.abs(dy + shift[0]) < 1.5)
     print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, {np.median(dy)}); "
           f"inlier fraction {inl.mean():.4f}")
@@ -551,7 +579,7 @@ def phase_main(torch, det, a, b, shift, tag="main"):
     check(np.median(dx) == -shift[1] and np.median(dy) == -shift[0],
           "known shift not recovered")
     check(inl.mean() > 0.85, f"inlier fraction {inl.mean():.4f}")
-    return launches, k4
+    return launches, k4, fa
 
 
 def phase_profile(torch, det, a, b, tag="profile"):
@@ -563,11 +591,65 @@ def phase_profile(torch, det, a, b, tag="profile"):
         fa, fb = det.detect_and_compute_pair(at, bt)
         return det.match(fa, fb)
 
-    prof = device_kernels(torch, pair_iteration)
+    prof = profiled(torch, pair_iteration, ("tiled_kernel", "octave_kernel",
+                                            "describe_kernel",
+                                            "hamming_kernel"))
     total = sum(v[0] for v in prof.values())
     print(f"[{tag}] {sum(v[1] for v in prof.values()):.0f} device kernels, "
           f"{total:.3f} ms device time per pair")
     return prof
+
+
+def phase_no_sync(torch, det, a, b, tag="no sync"):
+    """A warm pair iteration on card tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that makes the
+    host wait for the card raises."""
+    at = torch.as_tensor(a, device=det.device)
+    bt = torch.as_tensor(b, device=det.device)
+    want = det.match(*det.detect_and_compute_pair(at, bt))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = det.match(*det.detect_and_compute_pair(at, bt))
+    except RuntimeError as e:
+        fail(f"{tag}: a warm pair iteration synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got.index, want.index)), f"{tag}: results moved")
+    print(f"[{tag}] a warm pair iteration ran under sync debug mode "
+          f"'error': no host synchronisation")
+
+
+def phase_describe_false(torch, det, a, fa, tag="describe=False"):
+    """One image with ``describe=False``: K1 only (13 launches at B = 1),
+    the pair's keypoints of that image, angle 0, zero words; and K1's
+    device time per image (the JAX package's ``fused_sublevel``, B = 1)."""
+    at = torch.as_tensor(a, device=det.device)
+    for fn in counters().values():
+        fn.launches = 0
+    f = det.detect_and_compute(at, describe=False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    check(launches == dict(MAIN_LAUNCHES, describe=0, hamming=0),
+          f"{tag}: launches {launches}")
+    n = int(fa.count)
+    check(int(f.count) == n and bool(torch.equal(f.x, fa.x))
+          and bool(torch.equal(f.layer, fa.layer)),
+          f"{tag}: keypoints differ from the pair's")
+    check(not bool(f.angle.any()) and not bool(f.words.any()),
+          f"{tag}: angle or words not zero")
+    needle = "<int>" if det.fixed else "<float>"
+    prof = profiled(torch, lambda: det.detect_and_compute(at, describe=False),
+                    ("tiled_kernel" + needle, "octave_kernel" + needle))
+    tiled, nt = kernel_time(prof, "tiled_kernel" + needle)
+    resident, nr = kernel_time(prof, "octave_kernel" + needle)
+    check(not any("describe_kernel" in k or "hamming_kernel" in k
+                  for k in prof), f"{tag}: K2 or K4 in the trace")
+    print(f"[{tag}] launches {launches}; {n} keypoints equal to the pair's; "
+          f"K1 B=1 device {tiled:.4f} + {resident:.4f} ms per image "
+          f"({nt:.0f} + {nr:.0f} launches)")
+    return tiled, resident
 
 
 def phase_small_reference(torch, dev, fixed=False, exact=False,
@@ -683,11 +765,22 @@ def main() -> int:
     k1 = phase_k1(torch, images, plan)
     k2 = phase_k2(torch, images, plan)
     k4 = phase_k4(torch, dev)
-    launches, k4_main = phase_main(torch, det, a, b, shift)
+    launches, k4_main, fa = phase_main(torch, det, a, b, shift)
+    phase_no_sync(torch, det, a, b)
+    k1_b1 = phase_describe_false(torch, det, a, fa)
     phase_small_reference(torch, dev)
     prof = phase_profile(torch, det, a, b)
     pair_ms = phase_timing(torch, det, a, b)
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
+
+    # the float path on f32 planes (bf16_sampling=False)
+    f32 = Akaze(AkazeConfig(max_pts=MAX_PTS, bf16_sampling=False),
+                device=dev)
+    k2_f32 = phase_k2(torch, images, f32.plan_for(H, W), tag="K2 f32")
+    launches_f32, _, _ = phase_main(torch, f32, a, b, shift,
+                                    tag="main float f32")
+    phase_no_sync(torch, f32, a, b, tag="no sync float f32")
+    prof_f32 = phase_profile(torch, f32, a, b, tag="profile float f32")
 
     # the 16.16 fixed-point path, both descriptor flavours
     exact = Akaze(AkazeConfig(max_pts=MAX_PTS, fixed_exact_sampling=True),
@@ -698,10 +791,12 @@ def main() -> int:
                              for x in (a8, b8)])
     k1_fx = phase_k1(torch, images_fx, plan_fx, tag="K1 fixed")
     k2_fx = phase_k2(torch, images_fx, plan_fx, fixed=True, tag="K2 fixed")
-    launches_fx, _ = phase_main(torch, exact, a8, b8, shift,
-                                tag="main fixed exact")
-    launches_ap, _ = phase_main(torch, approx, a8, b8, shift,
-                                tag="main fixed approximate")
+    launches_fx, _, _ = phase_main(torch, exact, a8, b8, shift,
+                                   tag="main fixed exact")
+    launches_ap, _, _ = phase_main(torch, approx, a8, b8, shift,
+                                   tag="main fixed approximate")
+    phase_no_sync(torch, exact, a8, b8, tag="no sync fixed exact")
+    phase_no_sync(torch, approx, a8, b8, tag="no sync fixed approximate")
     phase_small_reference(torch, dev, fixed=True, exact=True,
                           tag="check fixed exact")
     phase_small_reference(torch, dev, fixed=True,
@@ -733,7 +828,9 @@ def main() -> int:
     for name, needle, p, r, n in (
             ("describe_kernel", "describe_kernel<__nv_bfloat16", prof, k2,
              launches["describe"]),
-            ("describe_kernel_fixed", "describe_kernel<float", prof_fx,
+            ("describe_kernel_f32", "describe_kernel<float, false", prof_f32,
+             k2_f32, launches_f32["describe"]),
+            ("describe_kernel_fixed", "describe_kernel<float, true", prof_fx,
              k2_fx, launches_fx["describe"])):
         ms, _ = kernel_time(p, needle)
         rows.append((name, k2_src, k2_rep, n, ms, r, r["event_ms"]))
@@ -749,6 +846,8 @@ def main() -> int:
                "event_ms": event, "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": None}
+        if name in ("tiled_kernel", "octave_kernel"):
+            row["b1_device_ms_per_image"] = k1_b1[name == "octave_kernel"]
         if name == "hamming_kernel":
             row["stress_10000x10000"] = {
                 k: k4[k] for k in ("device_ms", "event_ms", "plain_ms",

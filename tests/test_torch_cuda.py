@@ -628,3 +628,243 @@ def test_fixed_pipeline_on_card_matches_cpu(cuda, exact):
     acc = gm.index[:n] >= 0
     dx = (gm.match_x[:n] - ga.x[:n])[acc].cpu().numpy()
     assert acc.sum() > 20 and np.median(dx) == -SHIFT[1]
+
+
+# --------------------------------------------------------------------------
+# K4 on the tensor cores: edge cases against the plain version
+# --------------------------------------------------------------------------
+
+def _k4_case(cuda, w1, w2, v2, c1, c2, v1=None):
+    """K4 against its plain version, bit for bit in all three outputs, and
+    the ``Matches`` they give; one launch.  Returns the plain result."""
+    from akaze_tpu_torch.match import matches_from_top2
+    args = [t.to(cuda) for t in (w1, w2, v2,
+                                 torch.tensor([c1], dtype=torch.int32),
+                                 torch.tensor([c2], dtype=torch.int32))]
+    want = k4.hamming_top2_plain(*args)
+    before = k4.hamming_top2.launches
+    got = k4.hamming_top2(*args)
+    torch.cuda.synchronize()
+    assert k4.hamming_top2.launches == before + 1
+    for name, g, w in zip(("best", "second", "index"), got, want):
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    n1, n2 = w1.shape[0], w2.shape[0]
+    v1 = torch.ones(n1, dtype=torch.bool) if v1 is None else v1
+    rng = np.random.default_rng(n2)
+    x2, y2 = (torch.from_numpy(rng.uniform(0, 500, n2).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    for a, b in zip(matches_from_top2(*got, v1.to(cuda), x2, y2),
+                    matches_from_top2(*want, v1.to(cuda), x2, y2)):
+        assert torch.equal(a, b)
+    return tuple(w.cpu() for w in want)
+
+
+def _k4_bits(rng, n1, n2, near=0.05):
+    """Random query bits, and train bits of which the first min(n1, n2)
+    rows are near copies of the queries."""
+    b1 = rng.integers(0, 2, (n1, 486)).astype(bool)
+    b2 = rng.integers(0, 2, (n2, 486)).astype(bool)
+    k = min(n1, n2)
+    b2[:k] = b1[:k] ^ (rng.random((k, 486)) < near)
+    return b1, b2
+
+
+def _pack(bits):
+    return pack_bits(torch.from_numpy(bits))
+
+
+@pytest.mark.cuda
+def test_hamming_ties_across_ranks_and_tiles(cuda):
+    """Equal minima in different cluster ranks, in different chunks of one
+    rank and in one n-tile: the lowest index wins and second == best."""
+    rng = np.random.default_rng(21)
+    n1, n2 = 700, 6000
+    b1, b2 = _k4_bits(rng, n1, n2, near=0.3)
+    # query i's exact copy at several train rows spread over the range
+    # (the cluster's ranks split the 6000 live rows into shares of whole
+    # 64-row chunks)
+    for i in range(0, n1, 5):
+        for j in (3 + i, 3 + i + 1, 3 + i + 64, 3000 + i, 5200 + i % 700):
+            b2[j] = b1[i]
+    v2 = np.ones(n2, bool)
+    got = _k4_case(cuda, _pack(b1), _pack(b2), torch.from_numpy(v2), n1, n2)
+    ties = (got[0] == got[1]) & (got[2] >= 0)
+    assert int(ties.sum()) >= n1 // 5
+    assert (got[0][::5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_hamming_all_train_rows_invalid(cuda):
+    rng = np.random.default_rng(22)
+    b1, b2 = _k4_bits(rng, 300, 500)
+    got = _k4_case(cuda, _pack(b1), _pack(b2),
+                   torch.zeros(500, dtype=torch.bool), 300, 500)
+    assert (got[2] == -1).all() and (got[0] == k4.BIG).all()
+
+
+@pytest.mark.cuda
+def test_hamming_invalid_rows_interleaved(cuda):
+    """Invalid train rows before count2 never win, even as exact copies;
+    valid rows at or past count2 are not scanned."""
+    rng = np.random.default_rng(23)
+    n1, n2, c2 = 900, 3000, 1777
+    b1, b2 = _k4_bits(rng, n1, n2)
+    v2 = rng.random(n2) > 0.4
+    b2[1:n1:2] = b1[1:n1:2]          # exact copies on ...
+    v2[1:n1:2] = False               # ... invalid rows
+    b2[c2:c2 + n1] = b1              # exact copies past count2
+    v2[c2:] = True
+    got = _k4_case(cuda, _pack(b1), _pack(b2), torch.from_numpy(v2), n1, c2)
+    won = got[2][got[2] >= 0]
+    assert (won < c2).all() and torch.from_numpy(v2)[won].all()
+    assert (got[0][1::2] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c1, c2", [(0, 400), (300, 0), (0, 0)])
+def test_hamming_zero_counts(cuda, c1, c2):
+    rng = np.random.default_rng(24)
+    b1, b2 = _k4_bits(rng, 300, 400)
+    got = _k4_case(cuda, _pack(b1), _pack(b2),
+                   torch.ones(400, dtype=torch.bool), c1, c2)
+    assert (got[2] == -1).all() and (got[1] == k4.BIG).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1, n2, c1, c2", [
+    (1, 1, 1, 1), (17, 9, 13, 9), (1037, 777, 1001, 701),
+    (4099, 130, 4099, 129), (65, 8191, 64, 8190)])
+def test_hamming_ragged_extents(cuda, n1, n2, c1, c2):
+    """Capacities and live extents that are multiples of no tile (16-row
+    warp tiles, 128-query CTAs, 8-column accumulator tiles, 64-row chunks,
+    rank shares)."""
+    rng = np.random.default_rng(n1 + n2)
+    b1, b2 = _k4_bits(rng, n1, n2)
+    v2 = rng.random(n2) > 0.2
+    _k4_case(cuda, _pack(b1), _pack(b2), torch.from_numpy(v2), c1, c2)
+
+
+@pytest.mark.cuda
+def test_hamming_extreme_distances(cuda):
+    """Distances 0 (a query's copy) and 486 (its complement on every
+    descriptor bit, the pad bits zero on both sides)."""
+    rng = np.random.default_rng(25)
+    b1 = rng.integers(0, 2, (64, 486)).astype(bool)
+    b2 = np.concatenate([~b1, b1[::-1]])
+    v2 = torch.ones(128, dtype=torch.bool)
+    got = _k4_case(cuda, _pack(b1), _pack(b2), v2, 64, 128)
+    assert (got[0] == 0).all() and (got[2] == 127 - torch.arange(64)).all()
+    far = _k4_case(cuda, _pack(b1), _pack(~b1[:1]), v2[:1], 64, 1)
+    assert int(far[0][0]) == 486 and int(far[1][0]) == k4.BIG
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1, n2", [(300, 5000), (5000, 300)])
+def test_hamming_unequal_sets(cuda, n1, n2):
+    rng = np.random.default_rng(26)
+    b1, b2 = _k4_bits(rng, n1, n2)
+    v2 = rng.random(n2) > 0.1
+    v1 = torch.from_numpy(rng.random(n1) > 0.1)
+    _k4_case(cuda, _pack(b1), _pack(b2), torch.from_numpy(v2),
+             int(k4.last_live(v1)), int(k4.last_live(torch.from_numpy(v2))),
+             v1)
+
+
+# --------------------------------------------------------------------------
+# the pair paths without host syncs; K2 on f32 planes; describe=False
+# --------------------------------------------------------------------------
+
+PATHS = {"float": (False, {}), "float_f32": (False, {"bf16_sampling": False}),
+         "fixed_exact": (True, {"fixed_exact_sampling": True}),
+         "fixed_approximate": (True, {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_warm_pair_iteration_never_syncs(cuda, path):
+    """After a first pair, a pair iteration (detect + describe + match on
+    card tensors) makes no call that synchronises the host with the card:
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on any."""
+    fixed, kw = PATHS[path]
+    a, b = raw_pair() if fixed else pair()
+    det = Akaze(AkazeConfig(max_pts=512, noctaves=2, **kw), fixed=fixed,
+                device=cuda)
+    a, b = (torch.from_numpy(np.asarray(x)).to(cuda) for x in (a, b))
+    want = det.match(*det.detect_and_compute_pair(a, b))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = det.match(*det.detect_and_compute_pair(a, b))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got.index, want.index)
+    assert int((got.index >= 0).sum()) > 20
+
+
+@pytest.mark.cuda
+def test_f32_planes_describe_kernel_matches_plain(cuda):
+    """The float flavour on f32 planes (``bf16_sampling=False``), on the
+    keypoints and pyramid of a pair: angles within 1e-3 rad, 0 flipped
+    bits."""
+    plan = build_plan(256, 320, AkazeConfig(max_pts=512, noctaves=2,
+                                            bf16_sampling=False))
+    images = torch.from_numpy(np.stack(pair()))
+    octs, _ = build_scale_space(images, plan)
+    per_image = [[OctaveData(*(p[i] for p in o)) for o in octs]
+                 for i in range(2)]
+    kps = [detect_keypoints(o, plan) for o in per_image]
+    pp = build_padded_pyramid([o for img in per_image for o in img], WSIZE,
+                              torch.float32)
+    nplanes = pp.L.shape[0] // 2
+    params = [slot_params(k, pp, plan, plane_base=i * nplanes,
+                          nplanes=nplanes) for i, k in enumerate(kps)]
+    ip = torch.cat([p[0] for p in params]).to(cuda)
+    fp = torch.cat([p[1] for p in params]).to(cuda)
+    assert int(ip[:, 6].sum()) > 20
+    planes = tuple(p.to(cuda) for p in (pp.L, pp.lx, pp.ly))
+    tables = k2.describe_tables(10, cuda)
+    want = k2.describe_plain(ip, fp, planes, tables)
+    before = k2.describe.launches
+    got = k2.describe(ip, fp, planes, tables)
+    torch.cuda.synchronize()
+    assert k2.describe.launches == before + 1
+    d = (got[0] - want[0]).abs()
+    assert float(torch.minimum(d, 2 * np.pi - d).max()) < 1e-3
+    assert bit_flips(finish_descriptors(got[1]),
+                     finish_descriptors(want[1])).max() == 0
+
+
+@pytest.mark.cuda
+def test_f32_planes_describe_kernel_hand_made_slots(cuda):
+    """The float flavour on f32 planes of non-integer values, taps leaving
+    the window, dead slots interleaved."""
+    rng = np.random.default_rng(16)
+    shape = (2, 300, 320)
+    planes = tuple(torch.from_numpy(p.astype(np.float32)).to(cuda) for p in (
+        rng.uniform(0, 1, shape), rng.normal(0, 0.1, shape),
+        rng.normal(0, 0.1, shape)))
+    slots = [(1, 100, 120, oy, ox, isc, 1, oy + 0.3, ox - 0.4)
+             for isc in (2, 4)
+             for oy, ox in ((1, 2), (2, 126), (125, 1), (126, 125), (64, 0))]
+    live = rng.random(40) < 0.5
+    slots += _random_slots(rng, 40, 3, 0, 10, 40, live)
+    _k2_case(cuda, False, planes, slots)
+
+
+@pytest.mark.cuda
+def test_describe_false_launches_no_descriptor(cuda):
+    """``detect_and_compute(image, describe=False)`` on the card runs K1 and
+    neither K2 nor K4, and gives the keypoints of ``describe=True`` with
+    angle 0 and zero words."""
+    a, _ = pair()
+    det = Akaze(AkazeConfig(max_pts=512, noctaves=2), device=cuda)
+    want = det.detect_and_compute(a)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    before = [c.launches for c in counters]
+    got = det.detect_and_compute(a, describe=False)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [4, 1, 0, 0]
+    for name in ("x", "y", "size", "layer", "response", "valid", "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert not bool(got.angle.any()) and not bool(got.words.any())

@@ -35,7 +35,7 @@ from akaze_tpu.detect import build_padded_pyramid as jpadded
 from akaze_tpu.ops import pallas_describe as jpd
 from akaze_tpu.plan import build_plan as jbuild_plan
 from akaze_tpu.scale_space import OctaveData as JOctaveData
-from akaze_tpu_torch import build_plan, config_from
+from akaze_tpu_torch import build_plan, config_from, detect_and_compute_pair
 from akaze_tpu_torch import descriptor as tdesc
 from akaze_tpu_torch.detect import build_padded_pyramid, detect_keypoints
 from akaze_tpu_torch.ops import describe as tdescribe
@@ -259,13 +259,48 @@ def test_plain_version_on_fixtures_unchanged(described, described_fixed,
         assert (t_angle[n:] == 0).all() and (acc[n:] == 0).all()
 
 
+def test_f32_planes_match_jax_xla_path(described, test_image):
+    """``bf16_sampling=False``: the port's pair path describes float32
+    planes with the float flavour, and the JAX package's XLA float path
+    with the same configuration (float32 windows) gives the same angles
+    and words on the same keypoints and planes."""
+    ref_bf16, _, kps_t, _, plan = described
+    cfg = dataclasses.replace(plan.config, bf16_sampling=False)
+    plan = dataclasses.replace(plan, config=cfg)
+    jplan = jbuild_plan(plan.height, plan.width,
+                        JConfig(**dataclasses.asdict(cfg)))
+    assert tdesc.plane_dtype(plan, False) == torch.float32
+    a = test_image[:160, :208]           # the fixture's pair
+    pair = (a, np.roll(a, (5, 9), axis=(0, 1)))
+    got = detect_and_compute_pair(*pair, plan, device="cpu")
+    flipped_from_bf16 = 0
+    for img, f, k, r in zip(pair, got, kps_t, ref_bf16):
+        n = int(k.count)
+        assert int(f.count) == n > 10 and torch.equal(f.x, k.x)
+        octs, _ = build_scale_space(torch.from_numpy(img), plan)
+        jkps = _to_jax(k, JKeypoints)
+        pp = jpadded([_to_jax(o, JOctaveData) for o in octs], jdesc.WSIZE)
+        assert pp.L.dtype == jnp.float32
+        wnd = jdesc.extract_windows(jkps, pp, jplan)
+        angle = jdesc.compute_orientation(jkps, wnd, jplan)
+        words = np.asarray(jdesc.compute_descriptors(jkps, angle, wnd,
+                                                     jplan).words)
+        assert (circular(f.angle.numpy()[:n], np.asarray(angle)[:n])
+                < 1e-3).all()
+        flips = bit_flips(tdesc.words_to_numpy(f.words)[:n], words[:n])
+        assert flips.max() == 0, (flips.max(), (flips > 0).sum())
+        assert (f.words.numpy()[n:] == 0).all()
+        flipped_from_bf16 += int(bit_flips(words[:n], r[2][:n]).sum())
+    assert flipped_from_bf16 > 0    # f32 sampling is not the bf16 one
+
+
 def test_describe_rejects_bad_input(described):
     _, _, kps_t, pp, plan = described
     ip, fp = tdesc.slot_params(kps_t[0], pp, plan)
     tables = tdescribe.describe_tables(10, ip.device)
     planes = (pp.L, pp.lx, pp.ly)
     with pytest.raises(TypeError):
-        tdescribe.describe(ip, fp, tuple(p.float() for p in planes), tables)
+        tdescribe.describe(ip, fp, tuple(p.double() for p in planes), tables)
     with pytest.raises(TypeError):
         tdescribe.describe(ip.long(), fp, planes, tables)
     with pytest.raises(ValueError):
@@ -338,8 +373,12 @@ def test_fixed_flavour_differs_from_float(described_fixed):
     n = int(kps_t[0].count)
     assert (exact[:n] == exact[:n].round()).all()
     assert not torch.equal(exact[:n], flt[:n])
-    with pytest.raises(TypeError):   # the flavour follows the planes' type
-        tdescribe.describe(ip, fp, planes, tables)
+    # the caller picks the flavour: the float one on the same f32 planes is
+    # the plain float version; the fixed one needs f32 planes
+    assert torch.equal(tdescribe.describe(ip, fp, planes, tables)[1], flt)
+    with pytest.raises(TypeError):
+        tdescribe.describe(ip, fp, tuple(p.bfloat16() for p in planes),
+                           tables, fixed=True)
 
 
 def _private_window_kernel(kps_t, pp, plan, fixed):

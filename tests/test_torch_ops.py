@@ -88,7 +88,7 @@ def test_config_fields_and_config_from():
 
 
 @pytest.mark.parametrize("field, value, refused", [
-    ("bf16_sampling", False, True),        # would change the descriptors
+    ("bf16_sampling", False, False),       # f32 float-path planes
     ("fixed_exact_sampling", True, False),  # the exact fixed descriptor
     ("pallas_descriptor", "off", False),   # kernel selectors: compatibility
     ("banded_windows", False, False),

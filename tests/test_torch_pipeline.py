@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from akaze_tpu import Akaze as JAkaze
 from akaze_tpu import AkazeConfig as JConfig
 from akaze_tpu.match import match as jmatch
 from akaze_tpu.pipeline import detect_and_compute_pair as jpair
@@ -31,7 +32,9 @@ from akaze_tpu.plan import build_plan as jbuild_plan
 from akaze_tpu_torch import (Akaze, build_plan, config_from,
                              detect_and_compute, detect_and_compute_pair,
                              features_to_numpy, match)
-from akaze_tpu_torch.descriptor import words_to_numpy
+from akaze_tpu_torch.descriptor import _compare_index_tensors, words_to_numpy
+from akaze_tpu_torch.detect import const_table
+from akaze_tpu_torch.pipeline import detect_batch
 from akaze_tpu_torch.ops.describe import describe
 from akaze_tpu_torch.ops.hamming import hamming_top2
 from akaze_tpu_torch.ops.sublevel import octave, sublevel
@@ -144,6 +147,103 @@ def test_akaze_class_and_export(runs, test_image):
     assert out["count"] == n and out["words"].dtype == np.uint32
     assert out["x"].shape == (n,) and out["words"].shape == (n, 16)
     assert out["overflow"] is False
+
+
+def test_constant_tables_built_once(runs, test_image):
+    """The pair path's constant tables (border bounds, sizes, refinement
+    offsets, plane widths and heights, compare indices) are copied to the
+    device once: a second call builds none and returns the same objects,
+    with the same keypoints."""
+    _, _, tf, _, plan = runs
+    images = torch.from_numpy(np.stack(_images(test_image)))
+    kps1, pp1 = detect_batch(images, plan, device="cpu")
+    misses = const_table.cache_info().misses
+    kps2, pp2 = detect_batch(images, plan, device="cpu")
+    assert const_table.cache_info().misses == misses
+    assert pp1.widths is pp2.widths and pp1.heights is pp2.heights
+    cpu = torch.device("cpu")
+    assert all(a is b for a, b in zip(_compare_index_tensors(cpu),
+                                      _compare_index_tensors(cpu)))
+    for k1, k2, f in zip(kps1, kps2, tf):
+        for name in k1._fields:
+            assert torch.equal(getattr(k1, name), getattr(k2, name)), name
+        assert torch.equal(k1.x, f.x) and torch.equal(k1.layer, f.layer)
+
+
+KEYPOINT_FIELDS = ("x", "y", "size", "layer", "response", "valid", "count",
+                   "overflow")
+
+
+def test_describe_false_keeps_keypoints(runs, test_image, monkeypatch):
+    """``describe=False``: the keypoint fields of ``describe=True``, angle 0
+    and zero words, without the plane stack or K2."""
+    import akaze_tpu_torch.pipeline as tpipe
+
+    def never(*args, **kw):
+        raise AssertionError("the descriptor stage ran")
+
+    _, _, tf, _, plan = runs
+    monkeypatch.setattr(tpipe, "build_padded_pyramid", never)
+    monkeypatch.setattr(tpipe, "orient_describe_multi", never)
+    det = Akaze(plan.config, device="cpu")
+    for img, want in zip(_images(test_image), tf):
+        for got in (det.detect_and_compute(img, describe=False),
+                    detect_and_compute(img, plan, device="cpu",
+                                       describe=False)):
+            for name in KEYPOINT_FIELDS:
+                assert torch.equal(getattr(got, name), getattr(want, name))
+            assert got.words.shape == want.words.shape
+            assert got.words.dtype == torch.int32
+            assert not got.angle.any() and not got.words.any()
+
+
+def test_describe_false_matches_jax(runs, test_image):
+    """The JAX package's ``Akaze.detect_and_compute(image,
+    describe=False)`` and the port's: the same keypoints (the tolerances
+    above), angle 0 and zero words on both sides."""
+    _, _, _, _, plan = runs
+    jdet = JAkaze(JConfig(**dataclasses.asdict(plan.config)))
+    det = Akaze(plan.config, device="cpu")
+    img = _images(test_image)[0]
+    want = jdet.detect_and_compute(jnp.asarray(img), describe=False)
+    got = det.detect_and_compute(img, describe=False)
+    n = int(want.count)
+    assert int(got.count) == n > 10
+    for name in ("layer", "size", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    for name in ("x", "y"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[:n],
+                                   np.asarray(getattr(want, name))[:n],
+                                   rtol=0, atol=1e-4, err_msg=name)
+    assert not np.asarray(want.angle).any() and not np.asarray(
+        want.words).any()
+    assert not got.angle.any() and not got.words.any()
+
+
+def test_match_threshold_defaults_as_in_jax(runs):
+    """``Akaze.match`` accepts below 96 unless told otherwise, whatever
+    ``config.max_dist`` says, as the JAX package's ``Akaze.match``: at
+    ``max_dist=50`` both give the Matches of the default threshold."""
+    jf, _, tf, tm, plan = runs
+    cfg = dataclasses.replace(plan.config, max_dist=50)
+    got = Akaze(cfg, device="cpu").match(*tf)
+    want = JAkaze(JConfig(**dataclasses.asdict(cfg))).match(*jf)
+    for name in ("index", "distance"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    for name in ("match_x", "match_y"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=0, atol=1e-4, err_msg=name)
+    assert torch.equal(got.index, tm.index)
+    # the threshold a caller passes is the one applied
+    assert bool((tm.distance >= 50).any())
+    strict = Akaze.match(*tf, max_dist=50)
+    assert bool((strict.index >= 0).any())
+    assert not bool((strict.distance >= 50).any())
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

@@ -33,26 +33,27 @@ def last_live(valid: torch.Tensor) -> torch.Tensor:
         dim=0, keepdim=True)
 
 
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of each 32-bit pattern held in an int64 tensor (values in
-    [0, 2^32))."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+def _bits(words: torch.Tensor) -> torch.Tensor:
+    """[N, 16] int32 words -> [N, 512] float32 bits (0 or 1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, :, None] >> shifts) & 1).reshape(
+        words.shape[0], 32 * DESCRIPTOR_WORDS).to(torch.float32)
 
 
 def distance_matrix(words1: torch.Tensor,
                     words2: torch.Tensor) -> torch.Tensor:
-    """Exact [N1, N2] int64 Hamming distances of int32 word rows."""
-    a = words1.to(torch.int64) & 0xFFFFFFFF
-    b = words2.to(torch.int64) & 0xFFFFFFFF
+    """Exact [N1, N2] int64 Hamming distances of int32 word rows:
+    |a| + |b| - 2 a.b over the bit vectors, a float32 product of 0/1
+    entries whose sums (at most 512) are exact."""
+    b = _bits(words2)
+    nb = b.sum(1)
     out = []
-    for i in range(0, a.shape[0], CHUNK):
-        x = a[i:i + CHUNK, None, :] ^ b[None, :, :]
-        out.append(popcount32(x).sum(-1))
+    for i in range(0, words1.shape[0], CHUNK):
+        a = _bits(words1[i:i + CHUNK])
+        d = a.sum(1)[:, None] + nb[None, :] - 2.0 * (a @ b.T)
+        out.append(d.to(torch.int64))
     if not out:
-        return torch.zeros((0, b.shape[0]), dtype=torch.int64,
+        return torch.zeros((0, words2.shape[0]), dtype=torch.int64,
                            device=words1.device)
     return torch.cat(out)
 

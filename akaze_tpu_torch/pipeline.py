@@ -183,6 +183,35 @@ class Akaze:
                      max_dist)
 
 
+def features_from_numpy(f, device, max_pts: Optional[int] = None
+                        ) -> Features:
+    """``Features`` on ``device`` from numpy arrays (the inverse of
+    ``features_to_numpy``): ``f`` is a mapping or a named tuple of arrays
+    with the fields of ``Features``, such as the JAX package's (uint32
+    words; an ``overflow`` of None reads as False).  Rows are kept as given,
+    or padded with dead slots to ``max_pts``."""
+    d = f if isinstance(f, dict) else f._asdict()
+    n = np.asarray(d["x"]).shape[0]
+    pad = (max_pts or n) - n
+    if pad < 0:
+        raise ValueError(f"{n} rows do not fit max_pts={max_pts}")
+    dev = _device(device)
+    out = {}
+    for k in Features._fields:
+        v = d.get(k)
+        if k == "count":
+            v = np.int32(n if v is None else v)
+        elif k == "overflow":
+            v = np.bool_(False if v is None else v)
+        else:
+            v = np.asarray(v)
+            if k == "words":
+                v = v.astype(np.uint32).view(np.int32)
+            v = np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+        out[k] = torch.as_tensor(np.ascontiguousarray(v), device=dev)
+    return Features(**out)
+
+
 def features_to_numpy(f: Features) -> dict:
     """Host-side export trimmed to the live count; words as uint32."""
     n = int(f.count)

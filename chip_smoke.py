@@ -46,14 +46,31 @@ any disagreement:
      each with its launch counters reset before and read after, the shift
      recovered; a small pair of each flavour against the CPU plain
      pipeline; no host sync in a warm pair iteration; and the same
-     timings.
+     timings;
+  9. the SLAM path, the TUM RGB-D configuration (``SlamSystem`` with the
+     VO defaults and ``local_ba_every=2``, intrinsics fx = fy = 525,
+     cx = 319.5, cy = 239.5) over a seeded out-and-back route of 480x640
+     ``synthetic_sequence`` frames: K1 at B = 1 against its plain version
+     on every octave of the 480x640 plan, and K2's single-image launch
+     (which serves K3) on one frame's slots (angles within 1e-3 rad, 0
+     flipped bits); the route with the launch counters reset before and
+     read after (K1, K2 and K4 on every tracked frame), each frame timed
+     between CUDA events; every pose finite, a loop edge accepted, PGO
+     run, local BA finite; the host profile by section, device kernels per
+     tracked frame (profiler), the keyframe ATE against the true offsets
+     (printed, not gated); the route again, bit for bit equal, with host
+     syncs per frame counted under ``set_sync_debug_mode("warn")``; K4 at
+     the route's live counts; and the small sequences of
+     tests/test_torch_slam.py on the card against the CPU with the CPU
+     run's minimal sets replayed.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
 synthetic 960x1280 texture A and its crop B shifted by (dy, dx) = (7, 13).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
-launches on the main path, device time per pair (``ms``) and per launch
+launches on the main path, device time per pair (``ms``; per frame for the
+SLAM path's rows, ``*_slam`` and ``describe_kernel_single``) and per launch
 (``device_ms``), host time per wrapper call (``host_us``), event-bracketed
 time (``event_ms``, host + device), the plain version's time, and the
 bound computed from this run's inputs.  The last line is
@@ -398,9 +415,10 @@ def phase_k1(torch, images, plan, tag="K1"):
 
 
 def phase_k2(torch, images, plan, fixed=False, tag="K2"):
-    """K2 against its plain version on the pair's keypoints and pyramid, on
-    the planes ``plan`` gives; ``fixed``: the fixed path's exact flavour
-    (``plan`` must select it)."""
+    """K2 against its plain version on the keypoints and pyramid of
+    ``images`` (the pair, or one image: the single-image launch that serves
+    K3), on the planes ``plan`` gives; ``fixed``: the fixed path's exact
+    flavour (``plan`` must select it)."""
     from akaze_tpu_torch.descriptor import (finish_descriptors, plane_dtype,
                                             slot_params, words_to_numpy)
     from akaze_tpu_torch.ops.describe import (describe, describe_plain,
@@ -411,7 +429,7 @@ def phase_k2(torch, images, plan, fixed=False, tag="K2"):
           f"{tag}: the configuration selects another flavour")
     kps, pp = detect_batch(images, plan, fixed=fixed)
     check(pp.L.dtype == plane_dtype(plan, fixed), f"{tag}: plane type")
-    nplanes = pp.L.shape[0] // 2
+    nplanes = pp.L.shape[0] // len(kps)
     params = [slot_params(k, pp, plan, plane_base=i * nplanes,
                           nplanes=nplanes) for i, k in enumerate(kps)]
     ip = torch.cat([p[0] for p in params])
@@ -729,6 +747,322 @@ def phase_timing(torch, det, a, b, tag="time"):
     return pair_ms
 
 
+# --------------------------------------------------------------------------
+# the SLAM path (the TUM RGB-D configuration of BASELINE.json)
+# --------------------------------------------------------------------------
+
+SLAM_H, SLAM_W = 480, 640
+# TUM RGB-D's documented default calibration (fx, fy, cx, cy)
+TUM_INTR = dict(fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+SLAM_OUT = 30            # outbound frames of the route
+SLAM_STEP = 64           # px between outbound frames
+# blob density of tests/test_vo_sequence.py (90 blobs on its 200 x 336
+# world), applied to this route's world
+BLOB_DENSITY = 90 / (200 * 336)
+SLAM_MIN_KF_OUT = 6      # min_loop_gap + 1 of the default SlamConfig
+SLAM_PROFILE_FRAMES = 3  # tracked frames in one profiler window
+# the small sequences of tests/test_torch_slam.py (160x224)
+SMALL_IMG_INTR = dict(fx=200.0, fy=200.0, cx=112.0, cy=80.0)
+SMALL_SLAM = dict(optimize_every=4, min_loop_gap=2, loop_min_matches=25,
+                  loop_min_inliers=8, loop_candidates=2, max_loops_per_kf=1,
+                  local_ba_every=3, local_ba_window=3, local_ba_points=64)
+SMALL_VO = dict(min_inliers=6, keyframe_inlier_ratio=1.05)
+SMALL_AKAZE = dict(max_pts=512, noctaves=2, dthreshold=5e-5)
+# card against CPU on the 3-D sequence, the card tests' tolerances: on the
+# same minimal sets the card's essential matrix moves by up to ~0.06 from
+# the CPU's (float32 8-point normal matrix, cuSOLVER against LAPACK)
+CARD_CPU_TRAJ_TOL = 5e-2     # of the map's extent
+CARD_CPU_WEIGHT_TOL = 0.3
+
+
+def slam_route():
+    """480x640 frames of ``synthetic_sequence`` along an out-and-back route:
+    ``SLAM_OUT`` frames out, ``SLAM_STEP`` px apart, then back a quarter
+    step off the outbound positions (no frame repeats an outbound one).
+    Returns (float frames in [0, 1], true pixel offsets [N, 2])."""
+    from akaze_tpu_torch.io import synthetic_sequence
+    q = SLAM_STEP // 4
+    n = 4 * (SLAM_OUT - 1) + 1
+    world = (SLAM_H + 40) * (SLAM_W + 2 * int(q * n + 20))
+    frames, offsets = synthetic_sequence(
+        np.random.default_rng(SEED + 7), n_frames=n, size=(SLAM_H, SLAM_W),
+        shift_per_frame=(0.0, float(q)), n_blobs=int(BLOB_DENSITY * world))
+    order = list(range(0, n, 4)) + list(range(n - 2, 0, -4))
+    return ([frames[k].astype(np.float32) / 255.0 for k in order],
+            offsets[order])
+
+
+def instrument(system):
+    """Record each PGO and local-BA call of ``system`` with its result."""
+    log = []
+    for name in ("optimize", "local_bundle_adjust"):
+        fn = getattr(system, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            log.append((_name, out))
+            return out
+        setattr(system, name, wrapped)
+    return log
+
+
+def tum_system(dev):
+    """The SLAM configuration of the TUM RGB-D cell: VO defaults
+    (AkazeConfig(max_pts=4000), RANSAC threshold 2e-5, 512 hypotheses) and
+    SlamConfig defaults except local_ba_every=2."""
+    from akaze_tpu_torch import AkazeConfig
+    from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    return SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
+                      SlamConfig(local_ba_every=2), device=dev)
+
+
+def loop_edges(system):
+    return [e for e in system.edges if e[0] - e[1] > 1]
+
+
+def phase_slam(torch, dev, frames, offsets, per_frame_k1):
+    """The SLAM main path at full size: ``SlamSystem.process`` frame by
+    frame with the launch counters reset before and read after (and per
+    frame), each frame's time between CUDA events, the host profile by
+    section.  Fails unless every pose is finite, a loop edge was accepted,
+    PGO ran and local BA gave a finite cost, and K1, K2 and K4 launched on
+    every tracked frame."""
+    from collections import defaultdict
+    from akaze_tpu_torch.io import ate_rmse
+
+    warm = tum_system(dev)                 # cuSOLVER/cuBLAS set-up, kernels
+    for f in frames[:3]:
+        warm.process(f)
+    torch.cuda.synchronize()
+
+    s = tum_system(dev)
+    log = instrument(s)
+    s.prof = s.vo.prof = defaultdict(float)
+    for fn in counters().values():
+        fn.launches = 0
+    rows = []
+    for k, f in enumerate(frames):
+        before = {n: fn.launches for n, fn in counters().items()}
+        n_kf = len(s.vo.keyframes)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        s.process(f)
+        end.record()
+        end.synchronize()
+        delta = {n: fn.launches - before[n] for n, fn in counters().items()}
+        rows.append((start.elapsed_time(end), len(s.vo.keyframes) > n_kf,
+                     delta))
+    launches = {n: fn.launches for n, fn in counters().items()}
+    print(f"[slam] {len(frames)} frames of {SLAM_H}x{SLAM_W}, "
+          f"{len(s.vo.keyframes)} keyframes, launches {launches}")
+
+    kf_out = sum(kf.index < SLAM_OUT for kf in s.vo.keyframes)
+    loops = loop_edges(s)
+    pgo = [c for n, c in log if n == "optimize"]
+    ba = [c for n, c in log if n == "local_bundle_adjust"]
+    tracked = [ms for k, (ms, kf, _) in enumerate(rows) if k and not kf]
+    kframes = [ms for k, (ms, kf, _) in enumerate(rows) if k and kf]
+    idx = [kf.index for kf in s.vo.keyframes]
+    gt = np.stack([offsets[idx, 1], offsets[idx, 0], np.zeros(len(idx))], 1)
+    ate = ate_rmse(s.keyframe_trajectory(), gt)
+    res = dict(
+        system=s, launches=launches, loops=[e[:2] for e in loops],
+        pgo=pgo, ba=ba, tracked_ms=float(np.median(tracked)),
+        keyframe_ms=float(np.median(kframes)), n_tracked=len(tracked),
+        n_keyframe_frames=len(kframes), ate_px_units=ate,
+        prof={k: v / len(frames) * 1e3 for k, v in sorted(s.prof.items())},
+        total_s=sum(r[0] for r in rows) / 1e3)
+    print(f"[slam] keyframes on the way out {kf_out}; loop edges "
+          f"{res['loops']}; PGO costs {[round(c, 6) for c in pgo]}; local "
+          f"BA costs {[None if c is None else round(c, 6) for c in ba]}")
+    print(f"[slam] median frame time (CUDA events): tracked frames "
+          f"{res['tracked_ms']:.3f} ms ({len(tracked)} frames), keyframe "
+          f"frames {res['keyframe_ms']:.3f} ms ({len(kframes)} frames); "
+          f"whole route {res['total_s']:.3f} s")
+    print("[slam] host profile, ms per frame by section (vo.fetch absorbs "
+          "device time): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                       res["prof"].items()))
+    print(f"[slam] keyframe ATE after similarity alignment to the true "
+          f"offsets (pixels; a plane under translation, not gated): "
+          f"{ate:.4f}")
+    # the checks, after the statistics are printed
+    for k, (_, _, d) in enumerate(rows):
+        check(d["tiled"] == per_frame_k1["tiled"]
+              and d["resident"] == per_frame_k1["resident"]
+              and d["describe"] == 1, f"slam frame {k}: launches {d}")
+        check(k == 0 or d["hamming"] >= 1, f"slam frame {k}: no K4")
+    for R, t in s.vo.poses:
+        check(np.isfinite(R).all() and np.isfinite(t).all(),
+              "slam: a non-finite pose")
+    for kf in s.vo.keyframes:
+        check(np.isfinite(kf.R).all() and np.isfinite(kf.t).all(),
+              "slam: a non-finite keyframe pose")
+    check(kf_out >= SLAM_MIN_KF_OUT,
+          f"slam: {kf_out} keyframes on the way out")
+    check(bool(loops), "slam: no loop edge accepted")
+    check(bool(pgo) and all(np.isfinite(c) for c in pgo),
+          f"slam: PGO costs {pgo}")
+    check(any(c is not None for c in ba)
+          and all(np.isfinite(c) for c in ba if c is not None),
+          f"slam: local BA costs {ba}")
+    check(bool(tracked) and bool(kframes), "slam: no tracked-only frame")
+    return res
+
+
+def phase_slam_profile(torch, dev, frames):
+    """Device kernels per tracked frame, from ``torch.profiler`` over the
+    frames after the first keyframe (a new system each attempt; the trace
+    can drop events)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    needles = ("tiled_kernel<float>", "octave_kernel<float>",
+               "describe_kernel<__nv_bfloat16", "hamming_kernel")
+    for _ in range(3):
+        s = tum_system(dev)
+        s.process(frames[0])
+        torch.cuda.synchronize()
+        window = frames[1:1 + SLAM_PROFILE_FRAMES]
+        n_kf = len(s.vo.keyframes)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for f in window:
+                s.process(f)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cuda:
+                continue
+            ns, n = out.get(e.name(), (0, 0))
+            out[e.name()] = (ns + e.duration_ns(), n + 1)
+        per = {k: (ns / len(window) / 1e6, n / len(window))
+               for k, (ns, n) in out.items()}
+        if all(any(nd in k for k in per) for nd in needles):
+            break
+    else:
+        fail("slam profile: a kernel of the path is missing from 3 traces")
+    kernels = sum(v[1] for v in per.values())
+    dev_ms = sum(v[0] for v in per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"[slam profile] frames 1-{len(window)} "
+          f"({len(s.vo.keyframes) - n_kf} of them keyframes): "
+          f"{kernels:.0f} device kernels and {dev_ms:.3f} ms device time "
+          f"per frame; largest: " + "; ".join(
+              f"{k[:48]} {v[0]:.4f} ms x{v[1]:.0f}" for k, v in top))
+    return per
+
+
+def phase_slam_repeat(torch, dev, frames, first):
+    """The full-size run again: keyframe trajectory and edges bit for bit
+    equal to the first run; host syncs per frame counted under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (not gated)."""
+    import warnings
+    s = tum_system(dev)
+    syncs = []
+    for f in frames:
+        n_kf = len(s.vo.keyframes)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                s.process(f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n = sum("synchroniz" in str(w.message) for w in caught)
+        syncs.append((n, len(s.vo.keyframes) > n_kf))
+    a, b = first.keyframe_trajectory(), s.keyframe_trajectory()
+    check(a.shape == b.shape and np.array_equal(a, b),
+          "slam: two card runs differ")
+    check([e[:2] for e in first.edges] == [e[:2] for e in s.edges]
+          and all(np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3])
+                  for x, y in zip(first.edges, s.edges)),
+          "slam: two card runs' edges differ")
+    tracked = [n for k, (n, kf) in enumerate(syncs) if k and not kf]
+    keyf = [n for k, (n, kf) in enumerate(syncs) if k and kf]
+    res = dict(tracked=float(np.median(tracked)),
+               keyframe=float(np.median(keyf)))
+    print(f"[slam repeat] a second full-size run: keyframe trajectory and "
+          f"edges bit for bit equal; host syncs per frame (sync debug "
+          f"'warn'): tracked median {res['tracked']:.0f} "
+          f"(min {min(tracked)}, max {max(tracked)}), keyframe frames "
+          f"median {res['keyframe']:.0f} (max {max(keyf)})")
+    return res
+
+
+def small_system(dev, intr, sampler):
+    from akaze_tpu_torch import AkazeConfig
+    from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    s = SlamSystem(Intrinsics(**intr), AkazeConfig(**SMALL_AKAZE),
+                   SlamConfig(**SMALL_SLAM), device=dev, **SMALL_VO)
+    s.vo.sampler = sampler
+    return s
+
+
+def phase_slam_card_cpu(torch, dev):
+    """The small sequences of tests/test_torch_slam.py on the card against
+    the port's CPU run, with the CPU run's minimal sets replayed: on
+    ``synthetic_sequence`` (a plane: degenerate two-view geometry, so
+    trajectories are not compared) keyframes and edges equal; on
+    ``projected_sequence`` (a 3-D scene) also edge weights and keyframe
+    trajectories within the card tests' tolerances."""
+    from akaze_tpu_torch.geometry.ransac import SetRecorder
+    from akaze_tpu_torch.io import synthetic_sequence
+    from akaze_tpu_torch.io.dataset import projected_sequence
+    from akaze_tpu_torch.pipeline import features_from_numpy
+
+    frames, _ = synthetic_sequence(np.random.default_rng(3), n_frames=9,
+                                   size=(160, 224),
+                                   shift_per_frame=(0.0, 10.0), n_blobs=300)
+    images = [frames[k].astype(np.float32) / 255.0 for k in (0, 4, 8, 7, 3)]
+    scene, _ = projected_sequence(np.random.default_rng(5))
+    feeds = {d: [features_from_numpy(f, d) for f in scene]
+             for d in ("cpu", str(dev))}
+    intr3d = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+    out = {}
+    for name, seq, intr in (("images", images, SMALL_IMG_INTR),
+                            ("3-D scene", range(len(scene)), intr3d)):
+        rec = SetRecorder()
+        runs = []
+        for d, sampler in (("cpu", rec), (str(dev), None)):
+            sm = small_system(d, intr, sampler or rec.replay())
+            if name != "images":
+                sm.vo.akaze.detect_and_compute = feeds[d].__getitem__
+            for f in seq:
+                sm.process(f)
+            runs.append(sm)
+        c, g = runs
+        check([k.index for k in c.vo.keyframes]
+              == [k.index for k in g.vo.keyframes],
+              f"card = CPU ({name}): keyframes differ")
+        check([e[:2] for e in c.edges] == [e[:2] for e in g.edges],
+              f"card = CPU ({name}): edges differ")
+        check(bool(loop_edges(c)), f"card = CPU ({name}): no loop edge")
+        tc, tg = c.keyframe_trajectory(), g.keyframe_trajectory()
+        check(np.isfinite(tg).all(), f"card = CPU ({name}): non-finite")
+        traj = float(np.abs(tc - tg).max() / max(np.abs(tc).max(), 1e-9))
+        wdiff = float(np.abs(np.asarray([e[4] for e in c.edges])
+                             - np.asarray([e[4] for e in g.edges])).max())
+        if name != "images":
+            check(traj <= CARD_CPU_TRAJ_TOL and wdiff <= CARD_CPU_WEIGHT_TOL,
+                  f"card = CPU ({name}): trajectory {traj:.3g} of the "
+                  f"extent, edge weights {wdiff:.3g}")
+        out[name] = (traj, wdiff)
+        print(f"[slam card = CPU] {name}: {len(c.vo.keyframes)} keyframes "
+              f"and edges {[e[:2] for e in c.edges]} equal; keyframe "
+              f"trajectories differ by {traj:.3g} of the extent, edge "
+              f"weights by {wdiff:.3g}"
+              + (" (not compared: degenerate)" if name == "images" else ""))
+    return out
+
+
+def k3_row_inputs(torch, dev, frame):
+    """The single-image path's plan and one frame on the card."""
+    from akaze_tpu_torch import Akaze, AkazeConfig
+    det = Akaze(AkazeConfig(max_pts=4000), device=dev)
+    return det, det.plan_for(SLAM_H, SLAM_W), torch.as_tensor(
+        frame, device=dev)[None]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stock-dir",
@@ -807,6 +1141,32 @@ def main() -> int:
     print(f"[time] card: {card}; fixed pair iteration {fx_ms:.3f} ms "
           f"(exact), {ap_ms:.3f} ms (approximate)")
 
+    # the SLAM path: the TUM RGB-D configuration at 480x640
+    t0 = time.perf_counter()
+    frames, offsets = slam_route()
+    print(f"[slam] route of {len(frames)} frames ({SLAM_OUT} out, "
+          f"{len(frames) - SLAM_OUT} back) rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    det1, plan1, img1 = k3_row_inputs(torch, dev, frames[0])
+    for fn in counters().values():
+        fn.launches = 0
+    det1.detect_and_compute(img1[0])
+    per_frame_k1 = {k: counters()[k].launches for k in ("tiled", "resident")}
+    check(per_frame_k1["tiled"] > 0 and per_frame_k1["resident"] > 0,
+          f"480x640 plan: K1 launches {per_frame_k1}")
+    k1_slam = phase_k1(torch, img1, plan1, tag="K1 slam")
+    k3 = phase_k2(torch, img1, plan1, tag="K3 (K2 single image)")
+    slam = phase_slam(torch, dev, frames, offsets, per_frame_k1)
+    prof_slam = phase_slam_profile(torch, dev, frames)
+    phase_slam_repeat(torch, dev, frames, slam["system"])
+    fa = det1.detect_and_compute(frames[0])
+    fb = det1.detect_and_compute(frames[1])
+    k4_slam = k4_case(torch, "K4 slam", fa.words, fb.words, fa.valid,
+                      fb.valid, fb.x, fb.y)
+    phase_slam_card_cpu(torch, dev)
+    print(f"[slam] card: {card}; median frame {slam['tracked_ms']:.3f} ms "
+          f"tracked, {slam['keyframe_ms']:.3f} ms with a new keyframe")
+
     k1_rep = "akaze_tpu/ops/pallas_sublevel.py:423"
     k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
               "akaze_tpu/ops/pallas_describe.py:579")
@@ -835,14 +1195,34 @@ def main() -> int:
         ms, _ = kernel_time(p, needle)
         rows.append((name, k2_src, k2_rep, n, ms, r, r["event_ms"]))
     ms, _ = kernel_time(prof, "hamming_kernel")
-    rows.append(("hamming_kernel", "akaze_tpu_torch/csrc/hamming.cu",
-                 "akaze_tpu/ops/pallas_match.py:103", launches["hamming"],
+    k4_src = "akaze_tpu_torch/csrc/hamming.cu"
+    k4_rep = "akaze_tpu/ops/pallas_match.py:103"
+    rows.append(("hamming_kernel", k4_src, k4_rep, launches["hamming"],
                  ms, k4_main, k4_main["event_ms"]))
+    rows = [r + (r[4] / max(r[3], 1),) for r in rows]
+    # the SLAM path's rows: ms is device time per frame of the route's
+    # tracked frames (profiler), launches count the whole route
+    for name, needle, src, rep, r in (
+            ("tiled_kernel_slam", "tiled_kernel<float>", k1_src,
+             "akaze_tpu/ops/pallas_sublevel.py:346", k1_slam["tiled"]),
+            ("octave_kernel_slam", "octave_kernel<float>", k1_src,
+             "akaze_tpu/ops/pallas_sublevel.py:346", k1_slam["resident"]),
+            ("describe_kernel_single", "describe_kernel<__nv_bfloat16",
+             k2_src, "akaze_tpu/ops/pallas_describe.py:579", k3),
+            ("hamming_kernel_slam", "hamming_kernel", k4_src, k4_rep,
+             k4_slam)):
+        ms, per_frame = kernel_time(prof_slam, needle)
+        counter = {"tiled_kernel_slam": "tiled",
+                   "octave_kernel_slam": "resident",
+                   "describe_kernel_single": "describe",
+                   "hamming_kernel_slam": "hamming"}[name]
+        rows.append((name, src, rep, slam["launches"][counter], ms, r,
+                     r["event_ms"], ms / max(per_frame, 1e-9)))
     kernels = []
-    for name, src, rep, n, ms, r, event in rows:
+    for name, src, rep, n, ms, r, event, per_launch in rows:
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": n, "max_abs_err": r["max_abs_err"], "ms": ms,
-               "device_ms": ms / max(n, 1), "host_us": r["host_us"],
+               "device_ms": per_launch, "host_us": r["host_us"],
                "event_ms": event, "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": None}
@@ -853,8 +1233,9 @@ def main() -> int:
                 k: k4[k] for k in ("device_ms", "event_ms", "plain_ms",
                                    "host_us", "bound_ms")}
         kernels.append(row)
-        print(f"[kernels] {name}: {n} launches, device {ms:.4f} ms per pair "
-              f"({ms / max(n, 1):.4f} per launch), bound "
+        print(f"[kernels] {name}: {n} launches, device {ms:.4f} ms per "
+              f"{'frame' if name.endswith(('_slam', '_single')) else 'pair'}"
+              f" ({per_launch:.4f} per launch), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), host "
               f"{r['host_us']:.1f} us per call/launch, event-bracketed "
               f"{event:.3f} ms, plain {r['plain_ms']:.3f} ms")

@@ -57,7 +57,8 @@ def planes():
 def test_import_leaves_jax_out():
     code = ("import sys, akaze_tpu_torch, akaze_tpu_torch.ops.sublevel, "
             "akaze_tpu_torch.ops.describe, akaze_tpu_torch.ops.hamming, "
-            "akaze_tpu_torch.io; "
+            "akaze_tpu_torch.io, akaze_tpu_torch.io.dataset, "
+            "akaze_tpu_torch.geometry, akaze_tpu_torch.slam; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'akaze_tpu.')) or m == 'akaze_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

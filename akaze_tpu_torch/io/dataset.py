@@ -4,9 +4,9 @@ A copy of ``akaze_tpu/io/dataset.py`` (numpy only; the port keeps its own
 copy so that it imports nothing of the JAX package): a glob-ordered frame
 sequence, KITTI-odometry pose files, the absolute trajectory error, and a
 seeded synthetic sequence whose frames equal the JAX package's byte for
-byte.  ``FrameSequence`` decodes frames synchronously; the JAX package's
-native threaded prefetch of ``.pgm`` frames waits for the port of
-``native.py`` (it yields the same frames).
+byte.  ``FrameSequence`` prefetches ``.pgm`` frames on the native loader's
+threads (``native.FrameLoader``) when the library is there, and decodes
+synchronously otherwise: the same frames, in order.
 
 ``projected_sequence`` is the port's own: keypoints of a 3-D scene, whose
 two-view geometry is not degenerate, unlike the plane of
@@ -25,9 +25,14 @@ from .image import load_gray
 
 
 class FrameSequence:
-    """Ordered grayscale frame sequence from a directory or glob pattern."""
+    """Ordered grayscale frame sequence from a directory or glob pattern.
 
-    def __init__(self, pattern: str):
+    With ``prefetch`` and every path a ``.pgm``, frames are decoded ahead on
+    the native loader's threads when the library is available;
+    synchronously otherwise.
+    """
+
+    def __init__(self, pattern: str, prefetch: bool = True):
         if os.path.isdir(pattern):
             paths: List[str] = []
             for ext in ("*.pgm", "*.png", "*.jpg"):
@@ -37,11 +42,22 @@ class FrameSequence:
             self.paths = sorted(glob.glob(pattern))
         if not self.paths:
             raise FileNotFoundError(f"no frames match {pattern!r}")
+        self._prefetch = prefetch and all(
+            p.lower().endswith(".pgm") for p in self.paths)
 
     def __len__(self) -> int:
         return len(self.paths)
 
     def __iter__(self) -> Iterator[np.ndarray]:
+        if self._prefetch:
+            from ..native import FrameLoader, get_lib
+            if get_lib() is not None:
+                loader = FrameLoader(self.paths)
+                try:
+                    yield from loader
+                finally:
+                    loader.close()
+                return
         for p in self.paths:
             yield load_gray(p)
 

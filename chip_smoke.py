@@ -63,6 +63,19 @@ any disagreement:
      the route's live counts; and the small sequences of
      tests/test_torch_slam.py on the card against the CPU with the CPU
      run's minimal sets replayed.
+  10. the single-device tools: the demo CLI as a user runs it (``python
+     -m akaze_tpu_torch.cli --json --iters 20`` in a subprocess, float and
+     ``--fixed``, on the pair written as PGM files: exit 0, counts equal to
+     the main path's on the same pair, > 500 matches, backend cuda, both
+     drawings written; then its path in this process with the launch
+     counters read); ``ransac_homography`` on the main pair's matches (the
+     known shift within 0.5 px, inliers > 0.85; timed, host syncs
+     counted), on 2,000 points with outliers and the CPU run's sets, and
+     ``pnp_dlt``, card against CPU; ``debug_planes`` of one 960x1280 image
+     on the card (13 K1 launches) against the CPU; the native host
+     runtime built with g++ (a fallback fails) and ``FrameSequence(...,
+     prefetch=True)`` giving the SLAM route's frames byte for byte, with
+     the loader's frames per second beside the synchronous decode's.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -85,6 +98,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -182,9 +196,9 @@ def quantise(x: np.ndarray) -> np.ndarray:
 # timing
 # --------------------------------------------------------------------------
 
-def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median over ``reps`` of one call's time between CUDA events: host
-    work before the launches included (host + device)."""
+def cuda_times(torch, fn, reps: int = 5, warmup: int = 1) -> list:
+    """``reps`` times of one call between CUDA events: host work before
+    the launches included (host + device)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -196,7 +210,18 @@ def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median of ``cuda_times``."""
+    return float(np.median(cuda_times(torch, fn, reps, warmup)))
+
+
+def spread(times) -> str:
+    """'median (min..max) ms of n' for a list of times."""
+    return (f"{np.median(times):.3f} ({min(times):.3f}..{max(times):.3f}) "
+            f"ms, {len(times)} calls")
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
@@ -589,7 +614,7 @@ def phase_main(torch, det, a, b, shift, tag="main"):
         print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, "
               f"{np.median(dy)})")
         check(acc.sum() > 100, "too few accepted matches")
-        return launches, k4, fa
+        return launches, k4, fa, fb, m
     inl = (np.abs(dx + shift[1]) < 1.5) & (np.abs(dy + shift[0]) < 1.5)
     print(f"[{tag}] median (dx, dy) = ({np.median(dx)}, {np.median(dy)}); "
           f"inlier fraction {inl.mean():.4f}")
@@ -597,7 +622,7 @@ def phase_main(torch, det, a, b, shift, tag="main"):
     check(np.median(dx) == -shift[1] and np.median(dy) == -shift[0],
           "known shift not recovered")
     check(inl.mean() > 0.85, f"inlier fraction {inl.mean():.4f}")
-    return launches, k4, fa
+    return launches, k4, fa, fb, m
 
 
 def phase_profile(torch, det, a, b, tag="profile"):
@@ -1055,6 +1080,296 @@ def phase_slam_card_cpu(torch, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# the single-device tools: the demo CLI, homography and PnP, debug planes,
+# the native host runtime
+# --------------------------------------------------------------------------
+
+CLI_ITERS = 20           # the CLI's --iters: pair iterations timed
+HOMOGRAPHY_N = 2000      # points of the outlier case, a third outliers
+
+
+def pair_counts(fa, fb, m):
+    """(left keypoints, right keypoints, accepted matches), as the CLI
+    counts them."""
+    n = int(fa.count)
+    return n, int(fb.count), int((m.index[:n] >= 0).sum())
+
+
+def main_path_counts(torch, det, a, b, tag):
+    """``pair_counts`` of the main path on (a, b), with the launch counters
+    reset before and read after (those of ``phase_main``)."""
+    for fn in counters().values():
+        fn.launches = 0
+    fa, fb = det.detect_and_compute_pair(a, b)
+    m = det.match(fa, fb)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    check(launches == MAIN_LAUNCHES, f"[{tag}] launches {launches}")
+    counts = pair_counts(fa, fb, m)
+    print(f"[{tag}] launches {launches}; counts {counts}")
+    return counts
+
+
+def phase_cli(torch, card, raw_pair, expected):
+    """The demo CLI at full size as a user runs it: ``python -m
+    akaze_tpu_torch.cli --json --iters 20`` in a subprocess on the pair
+    written as PGM files, float and ``--fixed``.  ``expected``: per flavour
+    (False, True) the counts ``phase_main`` gave on the same pair.  Fails
+    on a non-zero exit and unless the counts are equal, matches > 500, the
+    backend is cuda and both drawings exist.  Then the CLI's path in this
+    process (``--iters 1``) with the launch counters read: K1 and K2 on
+    both pair iterations, K4 on the first match and the 10 timed ones."""
+    import contextlib
+    import io
+    from akaze_tpu_torch import cli
+    from akaze_tpu_torch.io import save_pgm
+    here = os.path.dirname(os.path.abspath(__file__))
+    want_launches = {"tiled": 2 * MAIN_LAUNCHES["tiled"],
+                     "resident": 2 * MAIN_LAUNCHES["resident"],
+                     "describe": 2, "hamming": 11}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lp = os.path.join(tmp, "left.pgm")
+        rp = os.path.join(tmp, "right.pgm")
+        save_pgm(lp, raw_pair[0])
+        save_pgm(rp, raw_pair[1])
+        for fixed in (False, True):
+            tag = "fastakaze" if fixed else "akaze"
+            argv = (["--left", lp, "--right", rp, "--json", "--out-dir", tmp]
+                    + (["--fixed"] if fixed else []))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "akaze_tpu_torch.cli", *argv,
+                 "--iters", str(CLI_ITERS)], cwd=here, capture_output=True,
+                text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"[cli {tag}] exit {proc.returncode}:\n"
+                  f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            counts = (rec["left_pts"], rec["right_pts"], rec["matches"])
+            print(f"[cli {tag}] python -m akaze_tpu_torch.cli "
+                  f"{' '.join(argv)} --iters {CLI_ITERS}: {json.dumps(rec)}")
+            print(f"[cli {tag}] card: {card}; detect_pair_ms "
+                  f"{rec['detect_pair_ms']} (median of {CLI_ITERS} pair "
+                  f"iterations, CUDA events), match_ms {rec['match_ms']} "
+                  f"(median of {10 * CLI_ITERS} calls), compile_s "
+                  f"{rec['compile_s']} (first pair; the kernel library was "
+                  f"built earlier in this run), process wall {wall:.1f} s")
+            check(counts == expected[fixed],
+                  f"[cli {tag}] counts {counts}, phase_main gave "
+                  f"{expected[fixed]} on the same pair")
+            check(rec["matches"] > 500, f"[cli {tag}] {rec['matches']} "
+                  f"matches")
+            check(rec["backend"] == "cuda" and rec["fixed"] is fixed,
+                  f"[cli {tag}] backend {rec['backend']}")
+            for kind in ("keypoints", "matches"):
+                png = os.path.join(tmp, f"{tag}_{kind}.png")
+                check(os.path.exists(png), f"[cli {tag}] no {png}")
+            for fn in counters().values():
+                fn.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv + ["--iters", "1", "--no-draw"])
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters().items()}
+            print(f"[cli {tag}] launches of the CLI's path with --iters 1 "
+                  f"(2 pair iterations, 11 matches): {launches}")
+            check(launches == want_launches,
+                  f"[cli {tag}] launches {launches}")
+            out[tag] = rec
+    return out
+
+
+def phase_homography(torch, dev, card, fa, m, shift):
+    """``ransac_homography`` (512 hypotheses, 9 px^2) on the main pair's
+    accepted matches: the known shift as a homography within 0.5 px at the
+    image corners, inlier fraction > 0.85; its time between CUDA events
+    and its host syncs (counted under sync debug 'warn', not gated: eigh
+    has no _ex form).  The outlier case at ``HOMOGRAPHY_N`` points on the
+    card with the CPU run's sets, and ``pnp_dlt``, against the CPU."""
+    import warnings
+    from akaze_tpu_torch.geometry.homography import (pnp_dlt,
+                                                     ransac_homography)
+    from akaze_tpu_torch.geometry.ransac import draw_minimal_sets
+    from akaze_tpu_torch.testing import (HOMOGRAPHY_CARD_TOL,
+                                         homography_distance,
+                                         homography_outlier_case)
+
+    x1 = torch.stack([fa.x, fa.y], 1)
+    x2 = torch.stack([m.match_x, m.match_y], 1)
+    valid = m.index >= 0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res = ransac_homography(gen, x1, x2, valid, 9.0, 512)
+    Hm = (res.H / res.H[2, 2]).double().cpu()
+    corners = torch.tensor([[0.0, 0.0], [W - 1, 0.0], [0.0, H - 1],
+                            [W - 1, H - 1]], dtype=torch.float64)
+    hc = torch.cat([corners, torch.ones(4, 1, dtype=torch.float64)],
+                   1) @ Hm.T
+    n_valid = int(valid.sum())
+    frac = int(res.num_inliers) / max(n_valid, 1)
+    drift = None
+    if shift is not None:
+        moved = corners - torch.tensor([shift[1], shift[0]],
+                                       dtype=torch.float64)
+        drift = float((hc[:, :2] / hc[:, 2:] - moved).abs().max())
+    times = cuda_times(torch, lambda: ransac_homography(gen, x1, x2, valid,
+                                                        9.0, 512), reps=7)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ransac_homography(gen, x1, x2, valid, 9.0, 512)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"[homography] {n_valid} accepted matches of the main pair: "
+          f"{int(res.num_inliers)} inliers ({frac:.4f}); H / H22 = "
+          f"{np.round(Hm.numpy(), 5).tolist()}; corners off the known "
+          f"shift by {drift} px")
+    print(f"[homography] card: {card}; ransac_homography (512 hypotheses) "
+          f"{spread(times)} between CUDA events, {syncs} host syncs (sync "
+          f"debug 'warn', not gated)")
+    check(frac > 0.85, f"[homography] inlier fraction {frac:.4f}")
+    check(drift is None or drift < 0.5,
+          f"[homography] corners off the known shift by {drift} px")
+
+    p1, p2, out = homography_outlier_case(np.random.default_rng(SEED + 11),
+                                          HOMOGRAPHY_N, HOMOGRAPHY_N // 3)
+    p1, p2 = torch.from_numpy(p1), torch.from_numpy(p2)
+    ok = torch.ones(HOMOGRAPHY_N, dtype=torch.bool)
+    sets = draw_minimal_sets(torch.Generator().manual_seed(SEED), ok, 512, 4)
+    cpu = ransac_homography(None, p1, p2, ok, 4.0, sets=sets)
+    gpu = ransac_homography(None, p1.to(dev), p2.to(dev), ok.to(dev), 4.0,
+                            sets=sets.to(dev))
+    dh = homography_distance(gpu.H.cpu(), cpu.H)
+    flips = int((gpu.inliers.cpu() != cpu.inliers).sum())
+    print(f"[homography] outlier case, {HOMOGRAPHY_N} points ("
+          f"{len(out)} planted outliers) with the CPU run's sets: card H "
+          f"differs by {dh:.3g} (normalised, up to sign), inlier masks by "
+          f"{flips} rows; {int(gpu.num_inliers)} inliers, "
+          f"{int(gpu.inliers.cpu()[out].sum())} planted outliers accepted")
+    check(dh <= HOMOGRAPHY_CARD_TOL, f"[homography] card H off by {dh}")
+    check(flips <= HOMOGRAPHY_N // 100, f"[homography] {flips} rows differ")
+    check(int(gpu.inliers.cpu()[out].sum()) < HOMOGRAPHY_N // 100,
+          "[homography] planted outliers accepted")
+
+    rng = np.random.default_rng(SEED + 12)
+    X = rng.uniform([-2, -2, 4], [2, 2, 10], (30, 3)).astype(np.float32)
+    a = 0.2
+    R = np.asarray([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]], np.float32)
+    Xc = X @ R.T + np.asarray([0.3, -0.2, 0.5], np.float32)
+    u = torch.from_numpy((Xc[:, :2] / Xc[:, 2:3]).astype(np.float32))
+    X = torch.from_numpy(X)
+    rc, tc = pnp_dlt(X, u)
+    rg, tg = pnp_dlt(X.to(dev), u.to(dev))
+    dr = float((rg.cpu() - rc).abs().max())
+    dt = float((tg.cpu() - tc).abs().max())
+    print(f"[homography] pnp_dlt card against CPU: R by {dr:.3g}, t by "
+          f"{dt:.3g}; R off the true rotation by "
+          f"{float(np.abs(rg.cpu().numpy() - R).max()):.3g}")
+    check(dr < 1e-3 and dt < 1e-2, "[homography] pnp_dlt card != CPU")
+
+
+def phase_debug(torch, dev, card, image, plan):
+    """``debug_planes`` of one image on the card (K1, the launches of
+    ``describe=False``, counters reset before and read after) against the
+    CPU: planes within K1's tolerance (det on the interior, as for the
+    tiled kernel), the layer and size maps and the NMS mask equal."""
+    from akaze_tpu_torch.debug import debug_planes
+    from akaze_tpu_torch.detect import build_extrema_maps, nms
+    from akaze_tpu_torch.pipeline import _as_images
+    from akaze_tpu_torch.scale_space import build_scale_space
+    for fn in counters().values():
+        fn.launches = 0
+    got = debug_planes(image, plan, device=dev)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    check(launches == dict(MAIN_LAUNCHES, describe=0, hamming=0),
+          f"[debug] launches {launches}")
+    t0 = time.perf_counter()
+    want = debug_planes(image, plan, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    times = cuda_times(torch, lambda: debug_planes(image, plan, device=dev),
+                       reps=5)
+    x = _as_images(image, dev, False)
+
+    def planes_on_card():
+        octaves, _ = build_scale_space(x, plan)
+        nms(*build_extrema_maps(octaves, plan), plan)
+
+    dev_times = cuda_times(torch, planes_on_card, reps=5)
+    check(list(got) == list(want), "[debug] keys differ")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        check(g.dtype == w.dtype and g.shape == w.shape, f"[debug] {k}")
+        if k in ("layer_map", "size_map", "nms_mask"):
+            check(np.array_equal(g, w), f"[debug] {k}: "
+                  f"{int((g != w).sum())} pixels differ")
+            continue
+        if k.startswith("det"):
+            oi, si = map(int, k[3:].split("_"))
+            mg = 2 * plan.octaves[oi].scales[si].sigma_size + 2
+            g, w = g[mg:-mg, mg:-mg], w[mg:-mg, mg:-mg]
+        scale = max(float(np.abs(w[w > -1e5]).max()), 1e-6)
+        rel = float(np.abs(g.astype(np.float64) - w).max()) / scale
+        worst = max(worst, rel)
+        check(rel <= TOL, f"[debug] {k}: rel err {rel:.3g}")
+    print(f"[debug] {len(got)} planes of a {H}x{W} image, launches "
+          f"{launches}: card = CPU (max rel err {worst:.3g}; maps and "
+          f"{int(got['nms_mask'].sum())} NMS survivors equal); card: {card};"
+          f" CPU {cpu_s:.2f} s")
+    mib = sum(v.nbytes for v in got.values()) / 2 ** 20
+    print(f"[debug] between CUDA events: debug_planes {spread(times)}; of "
+          f"which the planes on the card, no copies, {spread(dev_times)}; "
+          f"the rest copies {mib:.1f} MiB to the host")
+
+
+def phase_native(card, frames):
+    """The native host runtime: its library must build (g++), and
+    ``FrameSequence(dir, prefetch=True)`` yields the SLAM route's frames,
+    written as PGM files, byte for byte and in order; the loader's frames
+    per second beside the synchronous decode's."""
+    from akaze_tpu_torch import native
+    from akaze_tpu_torch.io import FrameSequence, load_pgm, save_pgm
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, "[native] the native library did not build "
+          "(g++): FrameSequence would decode in Python")
+    raw = [np.rint(f * 255).astype(np.uint8) for f in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{k:06d}.pgm") for k in range(len(raw))]
+        for p, r in zip(paths, raw):
+            save_pgm(p, r)
+        got = list(FrameSequence(tmp, prefetch=True))
+        check(len(got) == len(raw)
+              and all(g.dtype == np.uint8 and np.array_equal(g, r)
+                      for g, r in zip(got, raw)),
+              "[native] prefetched frames differ from those written")
+        loader_s, sync_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loader = native.FrameLoader(paths)
+            n = sum(1 for _ in loader)
+            loader.close()
+            loader_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for p in paths:
+                load_pgm(p)
+            sync_s.append(time.perf_counter() - t0)
+        check(n == len(paths), f"[native] loader gave {n} frames")
+    h, w = raw[0].shape
+    print(f"[native] library {os.path.relpath(native.library_path())} "
+          f"({build_s:.2f} s to build and load); FrameSequence(prefetch="
+          f"True) gave the {len(raw)} frames of {h}x{w} byte for byte, in "
+          f"order; frames per second (host: {card}): native loader "
+          f"{len(paths) / np.median(loader_s):.0f}, synchronous decode "
+          f"{len(paths) / np.median(sync_s):.0f} (median of 3 passes)")
+
+
 def k3_row_inputs(torch, dev, frame):
     """The single-image path's plan and one frame on the card."""
     from akaze_tpu_torch import Akaze, AkazeConfig
@@ -1099,9 +1414,10 @@ def main() -> int:
     k1 = phase_k1(torch, images, plan)
     k2 = phase_k2(torch, images, plan)
     k4 = phase_k4(torch, dev)
-    launches, k4_main, fa = phase_main(torch, det, a, b, shift)
+    launches, k4_main, fa_main, _, m_main = phase_main(torch, det, a, b,
+                                                       shift)
     phase_no_sync(torch, det, a, b)
-    k1_b1 = phase_describe_false(torch, det, a, fa)
+    k1_b1 = phase_describe_false(torch, det, a, fa_main)
     phase_small_reference(torch, dev)
     prof = phase_profile(torch, det, a, b)
     pair_ms = phase_timing(torch, det, a, b)
@@ -1111,8 +1427,8 @@ def main() -> int:
     f32 = Akaze(AkazeConfig(max_pts=MAX_PTS, bf16_sampling=False),
                 device=dev)
     k2_f32 = phase_k2(torch, images, f32.plan_for(H, W), tag="K2 f32")
-    launches_f32, _, _ = phase_main(torch, f32, a, b, shift,
-                                    tag="main float f32")
+    launches_f32, *_ = phase_main(torch, f32, a, b, shift,
+                                  tag="main float f32")
     phase_no_sync(torch, f32, a, b, tag="no sync float f32")
     prof_f32 = phase_profile(torch, f32, a, b, tag="profile float f32")
 
@@ -1125,10 +1441,10 @@ def main() -> int:
                              for x in (a8, b8)])
     k1_fx = phase_k1(torch, images_fx, plan_fx, tag="K1 fixed")
     k2_fx = phase_k2(torch, images_fx, plan_fx, fixed=True, tag="K2 fixed")
-    launches_fx, _, _ = phase_main(torch, exact, a8, b8, shift,
-                                   tag="main fixed exact")
-    launches_ap, _, _ = phase_main(torch, approx, a8, b8, shift,
-                                   tag="main fixed approximate")
+    launches_fx, *_ = phase_main(torch, exact, a8, b8, shift,
+                                 tag="main fixed exact")
+    launches_ap, _, *pair_ap = phase_main(torch, approx, a8, b8, shift,
+                                          tag="main fixed approximate")
     phase_no_sync(torch, exact, a8, b8, tag="no sync fixed exact")
     phase_no_sync(torch, approx, a8, b8, tag="no sync fixed approximate")
     phase_small_reference(torch, dev, fixed=True, exact=True,
@@ -1166,6 +1482,18 @@ def main() -> int:
     phase_slam_card_cpu(torch, dev)
     print(f"[slam] card: {card}; median frame {slam['tracked_ms']:.3f} ms "
           f"tracked, {slam['keyframe_ms']:.3f} ms with a new keyframe")
+
+    # the single-device tools: the demo CLI on the pair written as PGM
+    # files (the float path reads them as raw / 255, so its counts come
+    # from the main path on that pair), homography and PnP, debug planes,
+    # the native host runtime
+    pgm = tuple(x.astype(np.float32) / 255.0 for x in (a8, b8))
+    phase_cli(torch, card, (a8, b8), {
+        False: main_path_counts(torch, det, *pgm, "main float pgm"),
+        True: pair_counts(*pair_ap)})
+    phase_homography(torch, dev, card, fa_main, m_main, shift)
+    phase_debug(torch, dev, card, a, plan)
+    phase_native(card, frames)
 
     k1_rep = "akaze_tpu/ops/pallas_sublevel.py:423"
     k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "

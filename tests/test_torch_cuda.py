@@ -34,6 +34,8 @@ from akaze_tpu_torch.ops import sublevel as k1
 from akaze_tpu_torch.ops.conv import (down_with_smooth, down_with_smooth_fixed,
                                      lowpass, lowpass_fixed)
 from akaze_tpu_torch.scale_space import OctaveData, build_scale_space
+from akaze_tpu_torch.testing import (HOMOGRAPHY_CARD_TOL, homography_distance,
+                                     homography_outlier_case)
 
 TOL = 1e-5
 SHIFT = (7, 13)
@@ -1124,3 +1126,131 @@ def test_slam_projected_on_card_matches_cpu(cuda):
     tc = c.keyframe_trajectory()
     np.testing.assert_allclose(g.keyframe_trajectory(), tc,
                                atol=5e-2 * float(np.abs(tc).max()))
+
+
+# --------------------------------------------------------------------------
+# homography, PnP, debug planes and the demo CLI on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [150, 2000])
+def test_homography_on_card_matches_cpu(cuda, n):
+    """``ransac_homography`` on the card with the CPU run's sets: H up to
+    sign and scale within ``HOMOGRAPHY_CARD_TOL``; inlier masks equal but
+    for rows within 1% of the threshold; the planted outliers rejected."""
+    from akaze_tpu_torch.geometry.homography import (
+        homography_transfer_error, ransac_homography)
+    from akaze_tpu_torch.geometry.ransac import draw_minimal_sets
+    x1, x2, out = homography_outlier_case(np.random.default_rng(42), n,
+                                          n // 3)
+    x1, x2 = torch.from_numpy(x1), torch.from_numpy(x2)
+    valid = torch.ones(n, dtype=torch.bool)
+    sets = draw_minimal_sets(torch.Generator().manual_seed(1), valid, 512, 4)
+    cpu = ransac_homography(None, x1, x2, valid, 4.0, sets=sets)
+    gpu = ransac_homography(None, x1.to(cuda), x2.to(cuda), valid.to(cuda),
+                            4.0, sets=sets.to(cuda))
+    assert gpu.H.device.type == "cuda"
+    assert (homography_distance(gpu.H.cpu(), cpu.H)
+            <= HOMOGRAPHY_CARD_TOL)
+    diff = gpu.inliers.cpu() != cpu.inliers
+    err = homography_transfer_error(cpu.H, x1, x2)
+    assert bool(((err[diff] - 4.0).abs() < 0.04).all())
+    assert int(gpu.num_inliers) == int(gpu.inliers.sum())
+    assert int(cpu.num_inliers) > 0.6 * n
+    assert int(gpu.inliers.cpu()[out].sum()) < max(5, n // 100)
+
+
+@pytest.mark.cuda
+def test_pnp_on_card_matches_cpu(cuda):
+    """``pnp_dlt`` on the card against the CPU: R within 1e-3, t within
+    1e-2 (the JAX tests' bars against the true pose), with and without
+    weights."""
+    from akaze_tpu_torch.geometry import so3_exp
+    from akaze_tpu_torch.geometry.homography import pnp_dlt
+    rng = np.random.default_rng(42)
+    X = rng.uniform([-2, -2, 4], [2, 2, 10], (30, 3)).astype(np.float32)
+    R = so3_exp(torch.tensor([0.1, -0.2, 0.15])).numpy()
+    t = np.asarray([0.3, -0.2, 0.5], np.float32)
+    Xc = X @ R.T + t
+    u = torch.from_numpy((Xc[:, :2] / Xc[:, 2:3]).astype(np.float32))
+    X = torch.from_numpy(X)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, 30).astype(np.float32))
+    for weights in (None, w):
+        rc, tc = pnp_dlt(X, u, weights)
+        rg, tg = pnp_dlt(X.to(cuda), u.to(cuda),
+                         None if weights is None else weights.to(cuda))
+        assert float((rg.cpu() - rc).abs().max()) < 1e-3
+        assert float((tg.cpu() - tc).abs().max()) < 1e-2
+        assert np.abs(rg.cpu().numpy() - R).max() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_debug_planes_on_card_match_cpu(cuda, fixed):
+    """``debug_planes`` on the card (K1) against the CPU (its plain
+    version): float planes and kcontrast within ``TOL`` of their max, the
+    fixed flavour bit for bit (PM_G2), det on the interior (the tiled
+    kernel's border band, P1-3); the layer and size maps and the NMS mask
+    equal; K1's launches those of ``describe=False``, and no K2 or K4."""
+    from akaze_tpu_torch.debug import debug_planes
+    a, _ = raw_pair() if fixed else pair()
+    plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    for c in counters:
+        c.launches = 0
+    got = debug_planes(a, plan, fixed=fixed, device=cuda)
+    launches = [c.launches for c in counters]
+    want = debug_planes(a, plan, fixed=fixed, device="cpu")
+    assert launches[2:] == [0, 0]
+    assert launches[0] + launches[1] == sum(
+        k1.octave_launches(o) for o in plan.octaves)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k.startswith("det"):
+            oi, si = map(int, k[3:].split("_"))
+            m = 2 * plan.octaves[oi].scales[si].sigma_size + 2
+            g, w = g[m:-m, m:-m], w[m:-m, m:-m]
+        if fixed or k in ("layer_map", "size_map", "nms_mask"):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            continue
+        scale = max(float(np.abs(w[w > -1e5]).max()), 1e-6)
+        np.testing.assert_allclose(g, w, rtol=0, atol=TOL * scale,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cli_on_card(cuda, tmp_path):
+    """The demo CLI with its default device: the card, the counts of
+    ``Akaze(device="cuda")`` on the same files, both drawings written."""
+    import contextlib
+    import io
+    import json
+    from akaze_tpu_torch import cli
+    from akaze_tpu_torch.io import load_gray, save_pgm
+    paths = []
+    for name, img in zip(("l", "r"), raw_pair()):
+        paths.append(str(tmp_path / f"{name}.pgm"))
+        save_pgm(paths[-1], img)
+    for fixed in (False, True):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--left", paths[0], "--right", paths[1], "--json",
+                      "--iters", "2", "--max-pts", "2000", "--out-dir",
+                      str(tmp_path)] + (["--fixed"] if fixed else []))
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert rec["backend"] == "cuda" and rec["fixed"] is fixed
+        imgs = [load_gray(p) for p in paths]
+        if not fixed:
+            imgs = [i.astype(np.float32) / 255.0 for i in imgs]
+        det = Akaze(AkazeConfig(max_pts=2000), fixed=fixed, device=cuda)
+        fa, fb = det.detect_and_compute_pair(*imgs)
+        m = det.match(fa, fb)
+        n = int(fa.count)
+        assert (rec["left_pts"], rec["right_pts"], rec["matches"]) == (
+            n, int(fb.count), int((m.index[:n] >= 0).sum()))
+        assert rec["matches"] > 50
+        tag = "fastakaze" if fixed else "akaze"
+        for kind in ("keypoints", "matches"):
+            assert (tmp_path / f"{tag}_{kind}.png").exists()

@@ -58,7 +58,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, akaze_tpu_torch, akaze_tpu_torch.ops.sublevel, "
             "akaze_tpu_torch.ops.describe, akaze_tpu_torch.ops.hamming, "
             "akaze_tpu_torch.io, akaze_tpu_torch.io.dataset, "
-            "akaze_tpu_torch.geometry, akaze_tpu_torch.slam; "
+            "akaze_tpu_torch.geometry, akaze_tpu_torch.slam, "
+            "akaze_tpu_torch.geometry.homography, akaze_tpu_torch.native, "
+            "akaze_tpu_torch.viz, akaze_tpu_torch.debug, "
+            "akaze_tpu_torch.cli, akaze_tpu_torch.testing; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'akaze_tpu.')) or m == 'akaze_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

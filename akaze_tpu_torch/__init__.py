@@ -14,7 +14,12 @@ PyTorch version.
 ``geometry`` (SE(3), two-view geometry, RANSAC) and ``slam`` (visual
 odometry, pose-graph optimisation, bundle adjustment, ``SlamSystem`` and
 its checkpoints) port the JAX package's back end in plain PyTorch on the
-same device; ``io.dataset`` holds the sequence utilities.
+same device; ``io.dataset`` holds the sequence utilities.  ``parallel``
+ports the multi-device tiers (a mesh of devices, several shards allowed on
+one; the row-sharded spatial tier, the sharded matcher, data-parallel
+pairs, sharded PGO and BA, the multi-process runtime), reached through
+``Akaze(mesh=...)``, ``slam.SlamSystem(mesh=...)`` and the CLI's
+``--spatial N``.
 
 This package imports torch and numpy, never jax and never ``akaze_tpu``.
 """

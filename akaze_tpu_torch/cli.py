@@ -11,6 +11,13 @@ Usage:
     python -m akaze_tpu_torch.cli --left PATH --right PATH [--fixed]
                                   [--iters N] [--out-dir DIR] [--max-pts N]
                                   [--no-draw] [--json] [--device DEV]
+                                  [--spatial N]
+
+``--spatial N`` row-shards each image over an N-shard mesh (the spatial
+tier, for images larger than one device's memory; ``Akaze(mesh=...)``).
+With ``--device cuda`` the shards are the first N visible cards, and it
+raises when fewer are visible, as the JAX CLI does; a device with an index
+(``cuda:0``) or ``cpu`` holds all N shards.
 
 ``--left`` and ``--right`` are required: the package ships no image pair
 (the reference's stereo pair, main.cpp:139-143, is not part of this
@@ -57,6 +64,19 @@ def _median_ms(fn, reps: int, device) -> float:
     return float(np.median(times))
 
 
+def spatial_mesh(n: int, device: str):
+    """The ``--spatial`` mesh: the first ``n`` visible cards for a
+    ``cuda`` device without an index (raises when fewer are visible), else
+    ``n`` shards on the one device named."""
+    import torch
+    from .parallel import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return make_mesh(n)
+    return make_mesh(n, devices=[dev] * n)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="AKAZE demo/benchmark on the PyTorch + CUDA port")
@@ -81,6 +101,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card, which raises "
                          "without one; 'cpu' runs the plain versions)")
+    ap.add_argument("--spatial", type=int, default=0, metavar="N",
+                    help="row-shard each image over an N-shard mesh "
+                         "(images larger than one device's memory): the "
+                         "first N cards for --device cuda (raises when "
+                         "fewer are visible), else N shards on the one "
+                         "device named")
     args = ap.parse_args(argv)
 
     import torch
@@ -96,8 +122,18 @@ def main(argv=None):
     else:
         left_in, right_in = left, right
 
-    det = Akaze(AkazeConfig(max_pts=args.max_pts), fixed=args.fixed,
-                device=args.device)
+    cfg = AkazeConfig(max_pts=args.max_pts)
+    mesh = None
+    if args.spatial > 1:
+        mesh = spatial_mesh(args.spatial, args.device)
+        from .parallel import spatial_supported
+        from .plan import build_plan
+        ok, why = spatial_supported(build_plan(*left.shape, cfg),
+                                    args.spatial, detect=True, describe=True)
+        if not ok:
+            ap.error(f"--spatial {args.spatial}: {why}")
+    det = Akaze(cfg, fixed=args.fixed, mesh=mesh,
+                device=None if mesh else args.device)
     dev = det.device
     dtype = torch.int32 if args.fixed else torch.float32
     la = torch.as_tensor(left_in, device=dev).to(dtype)
@@ -134,7 +170,8 @@ def main(argv=None):
             "fixed": args.fixed, "backend": dev.type}))
     else:
         mode = "fastakaze (16.16 int)" if args.fixed else "akaze (float32)"
-        print(f"[{mode}] backend={dev.type}")
+        print(f"[{mode}] backend={dev.type}"
+              + (f" spatial={args.spatial}" if mesh else ""))
         print(f"Number of features: {na} / {nb}")
         print(f"Matched features:   {n_match}")
         print(f"Detect+describe (both images, median of {iters}): "

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .config import DESCRIPTOR_BITS, DESCRIPTOR_WORDS
-from .detect import Keypoints, PaddedPyramid, pow2
+from .detect import Keypoints, PaddedPyramid, const_table, pow2
 from .plan import PipelinePlan
 
 # Window big enough for the worst-case sampling radius:
@@ -117,7 +117,7 @@ def _compare_indices() -> Tuple[np.ndarray, np.ndarray]:
 # --------------------------------------------------------------------------
 
 def slot_params(kps: Keypoints, pp: PaddedPyramid, plan: PipelinePlan,
-                plane_base: int = 0, nplanes: int = None):
+                plane_base: int = 0, nplanes: int = None, row_off=None):
     """Window geometry of each keypoint slot, as K2 takes it.
 
     Each keypoint reads a [WSIZE, WSIZE] window of its own sublevel plane,
@@ -132,6 +132,12 @@ def slot_params(kps: Keypoints, pp: PaddedPyramid, plan: PipelinePlan,
     sub-pixel centre, both window-local; iscale is ``int(size + 0.5)``.
     ``plane_base``/``nplanes`` place this image's planes in a stack of
     several images.
+
+    ``row_off``: optional per-octave row offset (ints) of the stack's
+    planes against global octave rows (the row-sharded tier's
+    halo-extended shards, parallel/spatial.py).  It is added in the
+    integer domain, to the rounded centres: shifting the float y instead
+    could drop mantissa bits and flip a +-0.5 rounding.
     """
     ms = plan.config.max_scale
     if nplanes is None:
@@ -142,8 +148,10 @@ def slot_params(kps: Keypoints, pp: PaddedPyramid, plan: PipelinePlan,
     iratio = torch.ones_like(kps.x) / pow2(o)
     xs = kps.x * iratio
     ys = kps.y * iratio
+    off = (0 if row_off is None
+           else const_table(tuple(row_off), torch.int32, layer.device)[o])
     xc = (xs + 0.5).to(torch.int32)
-    yc = (ys + 0.5).to(torch.int32)
+    yc = (ys + 0.5).to(torch.int32) + off
     wo = pp.widths[p]
     ho = pp.heights[p]
     x0 = torch.minimum((xc - WSIZE // 2).clamp(min=0),
@@ -151,12 +159,12 @@ def slot_params(kps: Keypoints, pp: PaddedPyramid, plan: PipelinePlan,
     y0 = torch.minimum((yc - WSIZE // 2).clamp(min=0),
                        (ho - WSIZE).clamp(min=0))
     ox = ((kps.x + 0.5).to(torch.int32) >> o) - x0
-    oy = ((kps.y + 0.5).to(torch.int32) >> o) - y0
+    oy = ((kps.y + 0.5).to(torch.int32) >> o) + off - y0
     iscale = (kps.size + 0.5).to(torch.int32)
     zero = torch.zeros_like(p)
     iparams = torch.stack([p, y0, x0, oy, ox, iscale,
                            kps.valid.to(torch.int32), zero], dim=1)
-    fparams = torch.stack([ys - y0.to(torch.float32),
+    fparams = torch.stack([ys - (y0 - off).to(torch.float32),
                            xs - x0.to(torch.float32)], dim=1)
     return (iparams.to(torch.int32).contiguous(),
             fparams.contiguous())
@@ -223,7 +231,8 @@ def plane_dtype(plan: PipelinePlan, fixed: bool) -> torch.dtype:
 
 
 def orient_describe_multi(kps_list: List[Keypoints], pp: PaddedPyramid,
-                          plan: PipelinePlan, fixed: bool = False):
+                          plan: PipelinePlan, fixed: bool = False,
+                          row_off=None):
     """Orientation and descriptor of several images' keypoints with ONE
     launch of K2 (replaces ``orient_describe_pallas_multi``, banded or
     not: both of the JAX package's window deliveries give these results).
@@ -234,14 +243,16 @@ def orient_describe_multi(kps_list: List[Keypoints], pp: PaddedPyramid,
     (``AkazeConfig.fixed_descriptor_exact``): exact on float32 planes, or
     the float flavour on bf16 planes.  The float path takes the float
     flavour on the planes it is given.  Dead slots get angle 0 and zero
-    words.  Returns a list of (angle [N], words [N, 16] int32) per image.
+    words.  ``row_off``: as in ``slot_params`` (one image).  Returns a
+    list of (angle [N], words [N, 16] int32) per image.
     """
     from .ops.describe import describe, describe_tables
 
     nimg = len(kps_list)
     nplanes = pp.L.shape[0] // nimg
     params = [slot_params(k, pp, plan, plane_base=i * nplanes,
-                          nplanes=nplanes) for i, k in enumerate(kps_list)]
+                          nplanes=nplanes, row_off=row_off)
+              for i, k in enumerate(kps_list)]
     iparams = torch.cat([p[0] for p in params])
     fparams = torch.cat([p[1] for p in params])
     tables = describe_tables(plan.config.descriptor_pattern_size,

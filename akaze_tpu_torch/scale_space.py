@@ -46,6 +46,13 @@ class OctaveData(NamedTuple):
     ly: torch.Tensor
 
 
+def base_smooth(config) -> Tuple[float, int]:
+    """(variance, radius) of the first octave's base smooth, whose result
+    is the first sublevel's L (sigma = soffset, akaze.cpp:325-332)."""
+    ksz = 2 * math.ceil((config.soffset - 0.8) / 0.3) + 3
+    return config.soffset * config.soffset, radius_for_ksize(ksz)
+
+
 def build_scale_space(image: torch.Tensor, plan: PipelinePlan
                       ) -> Tuple[List[OctaveData], torch.Tensor]:
     """Build the nonlinear scale space.
@@ -83,8 +90,7 @@ def build_scale_space(image: torch.Tensor, plan: PipelinePlan
             else:
                 mag = scharr_magnitude(lowpass(x, 1.0, 5))
                 kcontrast = percentile_contrast(mag, cfg.per)
-            ksz = 2 * math.ceil((cfg.soffset - 0.8) / 0.3) + 3
-            base = (cfg.soffset * cfg.soffset, radius_for_ksize(ksz))
+            base = base_smooth(cfg)
             src = x
         else:
             # new octave (akaze.cpp:371-391): decay kcontrast, decimate the

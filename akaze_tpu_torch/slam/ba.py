@@ -13,8 +13,10 @@ where W^T x (by point) and W y (by camera) are segment sums over the
 observation list (``linalg.segment_sum``, repeatable on the card).
 Jacobians are closed forms; residuals are the pinhole reprojection
 r = Xc[:2] / Xc[2] - uv.  The Levenberg-Marquardt loop runs a fixed number
-of steps with its accept test and damping on the device.  The sharded
-solver of the JAX package waits for the port of ``parallel/``.
+of steps with its accept test and damping on the device.  The Schur step
+(``schur_solve_shards``) takes the observations as per-shard pieces with a
+camera-side and a point-side reduction, so that ``parallel/sharded_ba.py``
+runs it with observations or landmark blocks sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -96,33 +98,65 @@ def _schur_solve(r, Jc, Jp, prob: BAProblem, hc, hp, lam, cg_iters: int):
     ``hp``: the one-hot matrices of ``prob.cam`` and ``prob.pt``.
 
     Returns (dc [C, 6], dp [P, 3])."""
-    cam, pt = prob.cam.long(), prob.pt.long()
-    JcT = Jc.transpose(-1, -2)
-    JpT = Jp.transpose(-1, -2)
+    dc, dp = schur_solve_shards([r], [Jc], [Jp], [prob], [hc], [hp], lam,
+                                cg_iters, cam_reduce=lambda xs: xs[0],
+                                pt_reduce=lambda xs: xs)
+    return dc, dp[0]
+
+
+def schur_solve_shards(r, Jc, Jp, probs, hc, hp, lam, cg_iters: int,
+                       cam_reduce, pt_reduce):
+    """The Schur step over observations split into shards: every argument
+    but ``lam`` and ``cg_iters`` is a list with one entry per shard, on the
+    shard's device (the JAX package's ``_schur_solve`` under
+    ``shard_map``).
+
+    ``cam_reduce(list)``: the sum of per-shard camera-side quantities
+    ([C, ...]), once, on the cameras' device (the JAX ``psum_axis``).
+    ``pt_reduce(list)``: per-shard point-side quantities ([P, ...]) as
+    each shard's point block: summed and handed to every shard when the
+    shards share the landmarks, or left as they are when each shard owns
+    its landmarks and all their observations (the JAX ``local_points``).
+
+    Returns (dc [C, 6] on the cameras' device, [dp [P_s, 3]] per shard)."""
+    lam_s = [lam.to(x.device) for x in r]
+    cams = [p.cam.long() for p in probs]
+    pts = [p.pt.long() for p in probs]
+    JcT = [J.transpose(-1, -2) for J in Jc]
+    JpT = [J.transpose(-1, -2) for J in Jp]
 
     # block diagonals and gradient
-    U = segment_sum(JcT @ Jc, hc)                         # [C, 6, 6]
-    V = segment_sum(JpT @ Jp, hp)                         # [P, 3, 3]
-    bc = segment_sum(_matvec(JcT, r), hc)                 # [C, 6]
-    bp = segment_sum(_matvec(JpT, r), hp)                 # [P, 3]
+    U = cam_reduce([segment_sum(a @ b, h)
+                    for a, b, h in zip(JcT, Jc, hc)])             # [C, 6, 6]
+    V = pt_reduce([segment_sum(a @ b, h)
+                   for a, b, h in zip(JpT, Jp, hp)])              # [P, 3, 3]
+    bc = cam_reduce([segment_sum(_matvec(a, x), h)
+                     for a, x, h in zip(JcT, r, hc)])             # [C, 6]
+    bp = pt_reduce([segment_sum(_matvec(a, x), h)
+                    for a, x, h in zip(JpT, r, hp)])              # [P, 3]
 
-    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
-    Vinv = torch.linalg.inv_ex(V + lam * eye3).inverse    # [P, 3, 3]
+    eye3 = torch.eye(3, dtype=V[0].dtype, device=V[0].device)
+    Vinv = [torch.linalg.inv_ex(v + lm * eye3.to(v.device)).inverse
+            for v, lm in zip(V, lam_s)]                           # [P, 3, 3]
 
     def W_T_x(x):
         """W^T x: [C, 6] -> [P, 3] via the observations."""
-        return segment_sum(_matvec(JpT, _matvec(Jc, x[cam])), hp)
+        return pt_reduce([
+            segment_sum(_matvec(a, _matvec(b, x.to(a.device)[c])), h)
+            for a, b, c, h in zip(JpT, Jc, cams, hp)])
 
-    def W_y(y):
+    def W_y(ys):
         """W y: [P, 3] -> [C, 6] via the observations."""
-        return segment_sum(_matvec(JcT, _matvec(Jp, y[pt])), hc)
+        return cam_reduce([segment_sum(_matvec(a, _matvec(b, y[p])), h)
+                           for a, b, y, p, h in zip(JcT, Jp, ys, pts, hc)])
 
     def S_matvec(x):
-        return _matvec(U, x) + lam * x - W_y(_matvec(Vinv, W_T_x(x)))
+        return _matvec(U, x) + lam * x - W_y(
+            [_matvec(vi, w) for vi, w in zip(Vinv, W_T_x(x))])
 
-    rhs = -bc + W_y(_matvec(Vinv, bp))
+    rhs = -bc + W_y([_matvec(vi, b) for vi, b in zip(Vinv, bp)])
     dc = cg(S_matvec, rhs, cg_iters)
-    dp = _matvec(Vinv, -bp - W_T_x(dc))
+    dp = [_matvec(vi, -b - w) for vi, b, w in zip(Vinv, bp, W_T_x(dc))]
     return dc, dp
 
 

@@ -14,8 +14,12 @@ metric depths, with median fallbacks).
 Randomness: the VO keeps a uint32[2] key on the host and splits it once per
 two-view solve (``geometry.ransac.split_key``); ``sampler(key, mask,
 num_hyps)`` turns the subkey into the [K, 8] minimal sets on the device
-(default ``sets_from_key``).  The detection mesh of the JAX package
-(``mesh=``) waits for the port of ``parallel/``.
+(default ``sets_from_key``).
+
+``mesh=``: frames big enough for the row-sharded spatial tier
+(``parallel/spatial.py``) run detection sharded over the mesh's ``data``
+axis; smaller frames fall back to the single-device program
+(``Akaze(spatial_fallback=True)``).
 """
 
 from __future__ import annotations
@@ -97,7 +101,10 @@ class VisualOdometry:
         traj = vo.trajectory()          # [N, 3] camera centres
 
     ``device``: the card by default (raises without one); ``"cpu"`` runs
-    every kernel's plain version.
+    every kernel's plain version.  ``mesh``: an optional ``parallel.Mesh``
+    with a ``data`` axis; frames the spatial tier can shard are detected
+    row-sharded over it, the rest on its first device, where every other
+    tensor of the VO lives.
     """
 
     def __init__(self, intr: Intrinsics,
@@ -107,9 +114,10 @@ class VisualOdometry:
                  keyframe_inlier_ratio: float = 0.6,
                  seed: int = 0,
                  local_ba_window: int = 5,
-                 device="cuda"):
+                 device=None, mesh=None):
         self.intr = intr
-        self.akaze = Akaze(config or AkazeConfig(max_pts=4000), device=device)
+        self.akaze = Akaze(config or AkazeConfig(max_pts=4000), device=device,
+                           mesh=mesh, spatial_fallback=True)
         self.device = self.akaze.device
         self.threshold = ransac_threshold
         self.min_inliers = min_inliers

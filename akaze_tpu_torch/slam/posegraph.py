@@ -13,8 +13,9 @@ forward-mode AD over all edges at once) once per Gauss-Newton step; J v is then
 a gather and two batched products, and J^T u a segment sum over the nodes.
 The normal matrix is never assembled, and (J^T J + damping) dx = -J^T r is
 solved with conjugate gradients.  Pose 0 (or ``fixed_mask``) is held by
-zeroing its update.  The edge-sharded solver of the JAX package waits for
-the port of ``parallel/``.
+zeroing its update.  The loop (``gauss_newton``) takes the edge list as
+per-shard pieces with a sum and a gather over them, so that
+``parallel/sharded_pgo.py`` runs it with the edges sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -72,24 +73,36 @@ def _masked_median(x, mask):
                        torch.zeros_like(s[0]))
 
 
+def _robust_delta(norms, active, delta_scale: float):
+    """The IRLS threshold: ``delta_scale`` times the median residual norm
+    over the active edges."""
+    return torch.clamp(delta_scale * _masked_median(norms, active),
+                       min=1e-12)
+
+
+def _irls_weights(norms, delta, kind: str = "huber"):
+    """Per-edge IRLS sqrt-weights of edges with residual norms ``norms``.
+    ``huber``: weight min(1, delta/n), whose influence saturates;
+    ``cauchy``: weight 1/(1 + (n/delta)^2), which redescends and so rejects
+    gross outliers (see the JAX module for the measurements behind the
+    choice)."""
+    if kind == "cauchy":
+        q = norms / delta
+        return torch.sqrt(1.0 / (1.0 + q * q))
+    return torch.sqrt(torch.clamp(delta / torch.clamp(norms, min=1e-12),
+                                  max=1.0))
+
+
 def _huber_irls_weights(r, active, delta_scale: float = 2.0,
                         kind: str = "huber"):
     """Per-edge IRLS sqrt-weights for a self-tuning robust loss.
 
     ``r`` [E, 6]: current (information-weighted) edge residuals.  The
     threshold is delta = delta_scale * median residual norm over the
-    active edges, re-estimated each Gauss-Newton step.  ``huber``: weight
-    min(1, delta/n), whose influence saturates; ``cauchy``: weight
-    1/(1 + (n/delta)^2), which redescends and so rejects gross outliers
-    (see the JAX module for the measurements behind the choice).
+    active edges, re-estimated each Gauss-Newton step (``_irls_weights``).
     """
     n = torch.sqrt(torch.sum(r * r, dim=-1))
-    delta = torch.clamp(delta_scale * _masked_median(n, active), min=1e-12)
-    if kind == "cauchy":
-        q = n / delta
-        return torch.sqrt(1.0 / (1.0 + q * q))
-    return torch.sqrt(torch.clamp(delta / torch.clamp(n, min=1e-12),
-                                  max=1.0))
+    return _irls_weights(n, _robust_delta(n, active, delta_scale), kind)
 
 
 def _edge_blocks(Ri, ti, Rj, tj, R_ij, t_ij, weight):
@@ -136,48 +149,92 @@ def optimize_pose_graph(R, t, graph: PoseGraph, iters: int = 10,
     Returns (R, t, final_cost), the cost a device scalar.  A step is kept
     only where it lowers the (IRLS-weighted) cost, decided on the device.
     """
-    n = R.shape[0]
     if fixed_mask is None:
-        fixed_mask = torch.zeros(n, dtype=torch.bool, device=R.device)
+        fixed_mask = torch.zeros(R.shape[0], dtype=torch.bool,
+                                 device=R.device)
         fixed_mask[0] = True
-    free = (~fixed_mask).to(R.dtype)[:, None]
-    active = graph.weight > 0
-    i, j = graph.i.long(), graph.j.long()
-    hot_i = one_hot(i, n, R.dtype)
-    hot_j = one_hot(j, n, R.dtype)
+    return gauss_newton(R, t, [graph], fixed_mask, iters, cg_iters, damping,
+                        robust, robust_delta, reduce=_only, gather=_only)
 
-    def cost_h(R, t, h):
-        r = _edge_residuals(R, t, graph) * h[:, None]
-        return 0.5 * torch.sum(r * r)
+
+def _only(xs):
+    return xs[0]
+
+
+def gauss_newton(R, t, graphs, fixed_mask, iters: int, cg_iters: int,
+                 damping: float, robust: str, robust_delta: float,
+                 reduce, gather):
+    """The Gauss-Newton loop over an edge list split into ``graphs``, one
+    per shard, each on its shard's device (one graph on one device for
+    ``optimize_pose_graph``; ``parallel.sharded_pgo`` shards it).
+
+    Poses live once, on ``R``'s device.  ``reduce(list)``: the sum over
+    the shards of per-shard tensors, on that device (J^T J v, J^T r and
+    the costs); ``gather(list)``: their concatenation there (the edge
+    norms whose median sets the robust threshold, which is global)."""
+    n = R.shape[0]
+    free = (~fixed_mask).to(R.dtype)[:, None]
+    shards = []
+    for g in graphs:
+        dev = g.weight.device
+        i, j = g.i.long(), g.j.long()
+        shards.append((g, dev, i, j, one_hot(i, n, R.dtype),
+                       one_hot(j, n, R.dtype), free.to(dev)))
+
+    def on(x, dev):
+        return x.to(dev)
+
+    def cost_h(R, t, hs):
+        def one(g, d, h):
+            r = _edge_residuals(on(R, d), on(t, d), g) * h[:, None]
+            return 0.5 * torch.sum(r * r)
+        return reduce([one(g, d, h) for (g, d, *_), h in zip(shards, hs)])
 
     for _ in range(iters):
-        r = _edge_residuals(R, t, graph)
+        rs = [_edge_residuals(on(R, d), on(t, d), g)
+              for g, d, *_ in shards]
         if robust in ("huber", "cauchy"):
-            h = _huber_irls_weights(r, active, robust_delta, robust)
+            norms = [torch.sqrt(torch.sum(r * r, dim=-1)) for r in rs]
+            delta = _robust_delta(gather(norms),
+                                  gather([g.weight > 0 for g, *_ in shards]),
+                                  robust_delta)
+            hs = [_irls_weights(nrm, on(delta, d), robust)
+                  for nrm, (_, d, *_) in zip(norms, shards)]
         else:
-            h = torch.ones_like(graph.weight)
+            hs = [torch.ones_like(g.weight) for g, *_ in shards]
         # derivative blocks of r_e * h_e in the free updates xi * free
-        Ji, Jj = _edge_blocks(R[i], t[i], R[j], t[j], graph.R_ij,
-                              graph.t_ij, graph.weight)
-        Ji = Ji * (h[:, None] * free[i])[..., None]
-        Jj = Jj * (h[:, None] * free[j])[..., None]
-        JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
+        ops = []
+        for (g, d, i, j, hot_i, hot_j, fr), h in zip(shards, hs):
+            Rd, td = on(R, d), on(t, d)
+            Ji, Jj = _edge_blocks(Rd[i], td[i], Rd[j], td[j], g.R_ij,
+                                  g.t_ij, g.weight)
+            Ji = Ji * (h[:, None] * fr[i])[..., None]
+            Jj = Jj * (h[:, None] * fr[j])[..., None]
+            ops.append((d, i, j, hot_i, hot_j, Ji, Jj,
+                        Ji.transpose(1, 2), Jj.transpose(1, 2)))
 
-        def jvp(v):
-            return (Ji @ v[i][..., None] + Jj @ v[j][..., None])[..., 0]
+        def jtj(op, v):
+            d, i, j, hot_i, hot_j, Ji, Jj, JiT, JjT = op
+            v = on(v, d)
+            u = (Ji @ v[i][..., None] + Jj @ v[j][..., None])
+            return (segment_sum((JiT @ u)[..., 0], hot_i)
+                    + segment_sum((JjT @ u)[..., 0], hot_j))
 
-        def vjp(u):
-            u = u[..., None]
+        def jt(op, r):
+            d, i, j, hot_i, hot_j, Ji, Jj, JiT, JjT = op
+            u = r[..., None]
             return (segment_sum((JiT @ u)[..., 0], hot_i)
                     + segment_sum((JjT @ u)[..., 0], hot_j))
 
         def matvec(v):
-            return vjp(jvp(v)) + damping * v
+            return reduce([jtj(op, v) for op in ops]) + damping * v
 
-        g = vjp(r * h[:, None])
+        g = reduce([jt(op, r * h[:, None])
+                    for op, r, h in zip(ops, rs, hs)])
         dx = cg(matvec, -g, cg_iters) * free
         R2, t2 = _retract(R, t, dx)
-        better = cost_h(R2, t2, h) < cost_h(R, t, h)
+        better = cost_h(R2, t2, hs) < cost_h(R, t, hs)
         R = torch.where(better, R2, R)
         t = torch.where(better, t2, t)
-    return R, t, pose_graph_cost(R, t, graph)
+    return R, t, reduce([pose_graph_cost(on(R, d), on(t, d), g)
+                         for g, d, *_ in shards])

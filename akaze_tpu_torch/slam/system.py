@@ -10,8 +10,13 @@ keyframe tracking with PGO and local BA, one device):
          -> build_local_ba + bundle_adjust on a keyframe window
 
 Checkpoints use the JAX package's file format (``save``/``restore``): a
-map saved by either package restores in the other.  The sharded solvers
-of the JAX package (``mesh=``) wait for the port of ``parallel/``.
+map saved by either package restores in the other.
+
+With ``mesh=`` every heavy stage runs the distributed tier: detection
+row-shards the frames over ``mesh['data']`` (``parallel/spatial.py``), PGO
+shards the edge list (``parallel/sharded_pgo.py``) and local BA shards
+landmark blocks with their observations (``parallel/sharded_ba.py``), over
+``mesh_axis``.
 """
 
 from __future__ import annotations
@@ -158,17 +163,24 @@ class SlamSystem:
     """Incremental SLAM over a frame stream.
 
     ``device``: the card by default (raises without one); ``"cpu"`` runs
-    every kernel's plain version.  ``vo_kwargs`` go to VisualOdometry.
+    every kernel's plain version.  ``mesh``: an optional
+    ``parallel.Mesh``; its first device holds the map, detection shards
+    rows over its ``data`` axis, and PGO and local BA shard over
+    ``mesh_axis`` (one axis name or an innermost-first tuple), with the
+    same results as the single-device solvers up to the order of their
+    sums.  ``vo_kwargs`` go to VisualOdometry.
     """
 
     def __init__(self, intr: Intrinsics,
                  akaze_config: Optional[AkazeConfig] = None,
                  slam_config: Optional[SlamConfig] = None,
-                 device="cuda", **vo_kwargs):
+                 device=None, mesh=None, mesh_axis="data", **vo_kwargs):
         self.cfg = slam_config or SlamConfig()
         self.vo = VisualOdometry(intr, akaze_config, device=device,
-                                 **vo_kwargs)
+                                 mesh=mesh, **vo_kwargs)
         self.device = self.vo.device
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.intr = intr
         # pose-graph edges between keyframes (indices into vo.keyframes)
         self.edges = []            # (i, j, R_ij np, t_ij np, weight)
@@ -315,6 +327,9 @@ class SlamSystem:
         K, E = len(kfs), len(self.edges)
         kcap = _bucket(K)
         ecap = _bucket(E)
+        if self.mesh is not None:
+            from ..parallel.mesh import axis_size
+            ecap += (-ecap) % axis_size(self.mesh, self.mesh_axis)
         R0 = np.tile(np.eye(3, dtype=np.float32), (kcap, 1, 1))
         t0 = np.zeros((kcap, 3), np.float32)
         R0[:K] = np.stack([k.R for k in kfs])
@@ -333,10 +348,18 @@ class SlamSystem:
         fixed = np.zeros(kcap, bool)
         fixed[0] = True
         fixed[K:] = True
-        R1, t1, cost = optimize_pose_graph(
-            self._tensor(R0), self._tensor(t0), g, iters=iters,
-            fixed_mask=self._tensor(fixed), robust=self.cfg.robust,
-            robust_delta=self.cfg.robust_delta)
+        if self.mesh is not None:
+            from ..parallel.sharded_pgo import sharded_optimize_pose_graph
+            R1, t1, cost = sharded_optimize_pose_graph(
+                self._tensor(R0), self._tensor(t0), g, self.mesh,
+                iters=iters, axis=self.mesh_axis,
+                fixed_mask=self._tensor(fixed), robust=self.cfg.robust,
+                robust_delta=self.cfg.robust_delta)
+        else:
+            R1, t1, cost = optimize_pose_graph(
+                self._tensor(R0), self._tensor(t0), g, iters=iters,
+                fixed_mask=self._tensor(fixed), robust=self.cfg.robust,
+                robust_delta=self.cfg.robust_delta)
         R1 = to_numpy(R1)
         t1 = to_numpy(t1)
         for k in range(len(kfs)):
@@ -385,10 +408,25 @@ class SlamSystem:
         fixed = np.zeros(ccap, bool)
         fixed[0] = True
         fixed[C:] = True
-        R1, t1, _, cost = bundle_adjust(
-            self._tensor(Rp), self._tensor(tp), self._tensor(Xp), prob,
-            n_cams=ccap, n_pts=pcap, iters=iters,
-            fixed_cam_mask=self._tensor(fixed))
+        if self.mesh is not None:
+            from ..parallel.mesh import axis_size
+            from ..parallel.sharded_ba import (
+                gather_points, landmark_sharded_bundle_adjust,
+                partition_landmarks)
+            n_dev = axis_size(self.mesh, self.mesh_axis)
+            part = partition_landmarks(
+                prob, pcap, n_dev,
+                min_pts_per_shard=-(-pcap // n_dev),
+                min_obs_per_shard=-(-mcap // n_dev))
+            R1, t1, _, cost = landmark_sharded_bundle_adjust(
+                self._tensor(Rp), self._tensor(tp), gather_points(part, Xp),
+                part, self.mesh, iters=iters, axis=self.mesh_axis,
+                fixed_cam_mask=self._tensor(fixed))
+        else:
+            R1, t1, _, cost = bundle_adjust(
+                self._tensor(Rp), self._tensor(tp), self._tensor(Xp), prob,
+                n_cams=ccap, n_pts=pcap, iters=iters,
+                fixed_cam_mask=self._tensor(fixed))
         R1 = to_numpy(R1)
         t1 = to_numpy(t1)
         for o, k in enumerate(range(lo, len(kfs))):

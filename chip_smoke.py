@@ -75,7 +75,27 @@ any disagreement:
      on the card (13 K1 launches) against the CPU; the native host
      runtime built with g++ (a fallback fails) and ``FrameSequence(...,
      prefetch=True)`` giving the SLAM route's frames byte for byte, with
-     the loader's frames per second beside the synchronous decode's.
+     the loader's frames per second beside the synchronous decode's;
+  11. the multi-device tier (``akaze_tpu_torch.parallel``) with several
+     shards on this one card (the programs and their exactness, not a
+     speed-up), each run under a guard that fails if a kernel's plain
+     version runs: the spatial tier (``Akaze(mesh=...)``) on the 960x1280
+     pair at 2 and 4 shards in all four flavours and on a 1920x2560 pair
+     at 4 and 8 shards (float and exact fixed), against the card's
+     unsharded path (the scale space gathered: fixed bit-exact, float
+     within 1e-5 of each plane's max; features: counts and layers equal,
+     x/y within 5e-5 px, 0 flipped bits; matches equal; the shift
+     recovered), with K1/K2 launches per shard as ``spatial_route``
+     predicts and K1 and K2 held against their plain versions on the
+     shards' own halo-extended inputs; ``sharded_match`` at 10000 x 10000
+     over 4 shards (equal to unsharded K4, K4 per shard = plain);
+     ``dp_pipeline_step`` on 8 pairs over 4 shards (equal to the per-pair
+     path); sharded PGO and landmark-sharded BA at the SLAM cell's sizes
+     (against the single-device solvers, two runs bit for bit equal, no
+     landmark-sized collective); ``SlamSystem(mesh=4 shards)`` on the TUM
+     route (K1, K2 per shard on every frame; keyframes and edges equal to
+     the single-device run's); the CLI with ``--spatial 4 --device
+     cuda:0`` in this process; ``dryrun_multichip(4)``.
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -88,11 +108,15 @@ SLAM path's rows, ``*_slam`` and ``describe_kernel_single``) and per launch
 time (``event_ms``, host + device), the plain version's time, and the
 bound computed from this run's inputs.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The sharded paths' rows (``*_spatial4``, ``*_spatial4_fixed``: per pair
+over 4 shards; ``hamming_kernel_sharded_match``: per 10000 x 10000 call;
+``*_dp``: per step of 8 pairs) carry the keys every row must have.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1370,6 +1394,698 @@ def phase_native(card, frames):
           f"{len(paths) / np.median(sync_s):.0f} (median of 3 passes)")
 
 
+# --------------------------------------------------------------------------
+# the multi-device tier (akaze_tpu_torch.parallel) with several shards on
+# this one card: the programs and their exactness, not a speed-up
+# --------------------------------------------------------------------------
+
+MESH_XY_TOL = 5e-5        # px: the spatial tier's bound for float FMA noise
+BIG_H, BIG_W = 1920, 2560
+DP_PAIRS = 8
+# sharded against single-device PGO: R within JAX's bound
+# (tests/test_parallel.py), t within 1e-3 of the trajectory's extent, the
+# cost within 1e-3 relative: each sums in its own order
+PGO_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Fail the run if any kernel's plain version runs inside: a sharded
+    path on card tensors must launch the kernels."""
+    from akaze_tpu_torch.ops import describe as k2
+    from akaze_tpu_torch.ops import hamming as k4
+    from akaze_tpu_torch.ops import sublevel as k1
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (k1, "sublevel_plain"), (k1, "octave_plain"), (k2, "describe_plain"),
+        (k4, "hamming_top2_plain"))]
+
+    def guard(name):
+        def refuse(*a, **kw):
+            fail(f"{name} ran on the card inside a sharded path")
+        return refuse
+
+    for m, n, _ in saved:
+        setattr(m, n, guard(n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Record (args, kwargs) of every call of ``module.name``."""
+    real = getattr(module, name)
+    calls = []
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def cpu_mesh_of(n, dev):
+    from akaze_tpu_torch.parallel import make_mesh
+    return make_mesh(n, devices=[dev] * n)
+
+
+def sublevel_work(px: int, taus, radius: int, given_smooth: bool):
+    """(bytes, operations) of one tiled sublevel on ``px`` pixels, counted
+    as ``k1_work`` counts them."""
+    ops = (0 if given_smooth else 2 * (1 + 3 * radius))
+    ops += (20 + 17 * len(taus)) if taus else 0
+    ops += 14 + 24
+    return 4 * px * (5 + given_smooth), ops * px
+
+
+def check_k1_calls(torch, tiled, resident, fixed, tag):
+    """K1 against its plain version on the calls a sharded path made (the
+    tiled kernel on halo-extended blocks, the resident kernel on gathered
+    octaves): planes within 1e-5 of their max (fixed: bit-exact), det on
+    the interior of tiled blocks.  Returns errors, the plain versions'
+    time (each call once, between CUDA events) and the bound of the
+    work."""
+    from akaze_tpu_torch.ops import sublevel as k1
+    tol = 0.0 if fixed else TOL
+    out = dict(max_abs_err=0.0, max_rel=0.0, plain_ms=0.0, bytes=0, ops=0,
+               res_abs_err=0.0, res_plain_ms=0.0, res_bytes=0, res_ops=0)
+    for a, kw in tiled:
+        got = k1.sublevel(*a, **kw)
+        t = cuda_times(torch, lambda: k1.sublevel_plain(*a, **kw), reps=1,
+                       warmup=0)[0]
+        want = k1.sublevel_plain(*a, **kw)
+        for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+            margin = 2 * a[3] + 2 if name == "det" else 0
+            rel, ab = rel_err(torch, g.double(), w.double(), margin)
+            check(rel <= tol, f"[{tag}] tiled {name} on a "
+                  f"{tuple(a[0].shape)} block: rel err {rel:.3g}")
+            out["max_rel"] = max(out["max_rel"], rel)
+            out["max_abs_err"] = max(out["max_abs_err"], ab)
+        out["plain_ms"] += t
+        nb, no = sublevel_work(a[0].numel(), a[2], kw["smooth_radius"],
+                               kw.get("smooth") is not None)
+        out["bytes"] += nb
+        out["ops"] += no
+    for a, kw in resident:
+        # a gathered octave runs where the unsharded rule puts it: on the
+        # resident kernel (det held on the whole plane), or on the tiled
+        # one (det on the interior, its work counted with the tiled rows)
+        op = a[2]
+        res = k1.routes_resident(op, kw.get("base"))
+        got = k1.octave(*a, **kw)
+        t = cuda_times(torch, lambda: k1.octave_plain(*a, **kw), reps=1,
+                       warmup=0)[0]
+        want = k1.octave_plain(*a, **kw)
+        for s_i, sp in enumerate(op.scales):
+            for name, g, w in zip(("L", "det", "lx", "ly"), got, want):
+                margin = 2 * sp.sigma_size + 2 if (name == "det"
+                                                   and not res) else 0
+                rel, ab = rel_err(torch, g[:, s_i].double(),
+                                  w[:, s_i].double(), margin)
+                check(rel <= tol, f"[{tag}] gathered octave "
+                      f"({'resident' if res else 'tiled'}) {name}: rel err "
+                      f"{rel:.3g}")
+                key = "res_abs_err" if res else "max_abs_err"
+                out[key] = max(out[key], ab)
+        nb, no = k1_work(op, a[0].shape[0], kw.get("smooth") is not None,
+                         res)
+        pre = "res_" if res else ""
+        out[pre + "plain_ms"] += t
+        out[pre + "bytes"] += nb
+        out[pre + "ops"] += no
+    return out
+
+
+def check_k2_calls(torch, calls, tag):
+    """K2 against its plain version on the launches a sharded path made
+    (each shard's halo-extended plane stack): angles within 1e-3 rad, 0
+    flipped bits."""
+    from akaze_tpu_torch.descriptor import finish_descriptors, words_to_numpy
+    from akaze_tpu_torch.ops.describe import describe, describe_plain
+    out = dict(max_abs_err=0.0, plain_ms=0.0, bytes=0, live=0)
+    for a, _ in calls:
+        ip, fp, planes, tables, fixed, _f32 = a
+        a1, c1 = describe(ip, fp, planes, tables, fixed)
+        t = cuda_times(torch, lambda: describe_plain(ip, fp, planes, tables,
+                                                     fixed),
+                       reps=1, warmup=0)[0]
+        a2, c2 = describe_plain(ip, fp, planes, tables, fixed)
+        d = (a1 - a2).abs()
+        d = torch.minimum(d, 2 * math.pi - d)
+        live = (ip[:, 6] > 0).cpu().numpy()
+        flips = np.unpackbits(
+            (words_to_numpy(finish_descriptors(c1))
+             ^ words_to_numpy(finish_descriptors(c2))).view(np.uint8),
+            axis=1).sum(1)[live]
+        check(float(d.max()) < 1e-3 and (not live.any()
+                                         or int(flips.max()) == 0),
+              f"[{tag}] K2 on a shard: angle {float(d.max())}, flips")
+        out["max_abs_err"] = max(out["max_abs_err"], float(d.max()),
+                                 float((c1 - c2).abs().max()))
+        out["plain_ms"] += t
+        n_live = int(live.sum())
+        out["live"] += n_live
+        out["bytes"] += (n_live * K2_TAPS * planes[0].element_size()
+                         + ip.numel() * 4 + fp.numel() * 4 + a1.numel() * 4
+                         + c1.numel() * 4)
+    return out
+
+
+def compare_features(torch, got, want, tag, exact_xy: bool):
+    """Sharded features against the unsharded path's: counts, layers and
+    validity equal, x/y within ``MESH_XY_TOL`` (fixed: exact), angles
+    within 1e-3 rad, 0 flipped bits.  Returns the largest x/y and angle
+    differences."""
+    from akaze_tpu_torch.descriptor import words_to_numpy
+    n = int(want.count)
+    check(int(got.count) == n and bool(torch.equal(got.valid, want.valid))
+          and bool(got.overflow) == bool(want.overflow),
+          f"[{tag}] counts {int(got.count)} against {n}")
+    check(bool(torch.equal(got.layer[:n], want.layer[:n])),
+          f"[{tag}] layers differ")
+    dxy = max(float((getattr(got, f)[:n] - getattr(want, f)[:n]).abs()
+                    .max()) for f in ("x", "y")) if n else 0.0
+    check(dxy == 0.0 if exact_xy else dxy <= MESH_XY_TOL,
+          f"[{tag}] x/y differ by {dxy}")
+    d = (got.angle[:n] - want.angle[:n]).abs()
+    da = float(torch.minimum(d, 2 * math.pi - d).max()) if n else 0.0
+    flips = int(np.unpackbits((words_to_numpy(got.words[:n])
+                               ^ words_to_numpy(want.words[:n]))
+                              .view(np.uint8)).sum())
+    check(da < 1e-3 and flips == 0,
+          f"[{tag}] angles differ by {da}, {flips} flipped bits")
+    return dxy, da
+
+
+def shift_recovered(torch, fa, m, shift, tag):
+    n = int(fa.count)
+    acc = (m.index[:n] >= 0).cpu().numpy()
+    dx = (m.match_x[:n] - fa.x[:n]).cpu().numpy()[acc]
+    dy = (m.match_y[:n] - fa.y[:n]).cpu().numpy()[acc]
+    inl = (np.abs(dx + shift[1]) < 1.5) & (np.abs(dy + shift[0]) < 1.5)
+    check(acc.sum() > 100 and np.median(dx) == -shift[1]
+          and np.median(dy) == -shift[0] and inl.mean() > 0.85,
+          f"[{tag}] known shift not recovered (median {np.median(dx)}, "
+          f"{np.median(dy)}; inliers {inl.mean():.4f})")
+    return inl.mean()
+
+
+def mesh_flavours():
+    from akaze_tpu_torch import AkazeConfig
+    return {"float": (False, AkazeConfig(max_pts=MAX_PTS)),
+            "float f32": (False, AkazeConfig(max_pts=MAX_PTS,
+                                             bf16_sampling=False)),
+            "fixed exact": (True, AkazeConfig(max_pts=MAX_PTS,
+                                              fixed_exact_sampling=True)),
+            "fixed approximate": (True, AkazeConfig(max_pts=MAX_PTS))}
+
+
+def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
+                       shift, rows_for=None):
+    """The spatial tier on one pair of ``size`` for each shard count and
+    flavour: ``Akaze(mesh=...)`` (each image row-sharded), held against
+    the card's unsharded path; the scale space gathered against the
+    unsharded one (fixed bit-exact, float within 1e-5 of each plane's
+    max); K1/K2 launches per shard equal to the route's prediction, K1 and
+    K2 against their plain versions on the shards' own inputs; the known
+    shift recovered.  ``rows_for``: (n, flavour) whose kernels are
+    profiled for the kernels line."""
+    from akaze_tpu_torch import Akaze
+    from akaze_tpu_torch.parallel import (spatial, spatial_launches,
+                                          spatial_route,
+                                          spatial_scale_space)
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.scale_space import build_scale_space
+    h, w = size
+    out = {"times": {}, "rows": {}}
+    for name, (fixed, cfg) in flavours.items():
+        a, b = pairs[fixed]
+        ref = Akaze(cfg, fixed=fixed, device=dev)
+        plan = ref.plan_for(h, w)
+        ra, rb = ref.detect_and_compute_pair(a, b)
+        rm = ref.match(ra, rb)
+        at = torch.as_tensor(a, device=dev)
+        out["times"][(name, 1)] = cuda_times(
+            torch, lambda: ref.detect_and_compute(at), reps=5)
+        ref_octs = None
+        for n in shards:
+            tag = f"mesh spatial {h}x{w} {name} n={n}"
+            mesh = cpu_mesh_of(n, dev)
+            det = Akaze(cfg, fixed=fixed, mesh=mesh)
+            if name in ("float", "fixed exact"):
+                if ref_octs is None:
+                    ref_octs, _ = build_scale_space(
+                        at.int() if fixed else at, plan)
+                octs, _ = spatial_scale_space(at, plan, mesh, fixed=fixed)
+                worst = 0.0
+                for oi, ro in enumerate(ref_octs):
+                    for k in range(4):
+                        g = torch.cat([o[oi][k] for o in octs], 1)
+                        rel, _ = rel_err(torch, g.double(), ro[k].double())
+                        worst = max(worst, rel)
+                        check(rel == 0.0 if fixed else rel <= TOL,
+                              f"[{tag}] scale space octave {oi} plane {k}: "
+                              f"rel err {rel:.3g}")
+                print(f"[{tag}] scale space equal to the unsharded one: "
+                      f"max rel err {worst:.3g} over every plane")
+            for fn in counters().values():
+                fn.launches = 0
+            with no_plain_versions(), \
+                    recording(spatial, "sublevel") as tiled, \
+                    recording(spatial, "octave") as resident, \
+                    recording(k2mod, "_launch") as k2calls:
+                fa, fb = det.detect_and_compute_pair(a, b)
+                m = det.match(fa, fb)
+                torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters().items()}
+            per = spatial_launches(plan, n)
+            want = {"tiled": 2 * n * per["tiled"],
+                    "resident": 2 * n * per["resident"],
+                    "describe": 2 * n, "hamming": 1}
+            check(launches == want, f"[{tag}] launches {launches}, the "
+                  f"route {spatial_route(plan, n)} predicts {want}")
+            check(det.spatial_fallbacks == 0, f"[{tag}] fell back")
+            dxy = max(compare_features(torch, fa, ra, tag, fixed)[0],
+                      compare_features(torch, fb, rb, tag, fixed)[0])
+            check(bool(torch.equal(m.index, rm.index)),
+                  f"[{tag}] matches differ from the unsharded path's")
+            inl = (shift_recovered(torch, fa, m, shift, tag)
+                   if shift is not None else float("nan"))
+            k1c = check_k1_calls(torch, tiled, resident, fixed, tag)
+            k2c = check_k2_calls(torch, k2calls, tag)
+            out["times"][(name, n)] = cuda_times(
+                torch, lambda: det.detect_and_compute(at), reps=5)
+            print(f"[{tag}] launches {launches} = the route's "
+                  f"{spatial_route(plan, n)}; features equal to the "
+                  f"unsharded path's (x/y within {dxy:.3g} px, 0 flipped "
+                  f"bits), matches equal, shift recovered (inliers "
+                  f"{inl:.4f}); K1 on {len(tiled)} halo-extended blocks "
+                  f"and {len(resident)} gathered octaves = plain (rel "
+                  f"{k1c['max_rel']:.3g}), K2 on {len(k2calls)} shard "
+                  f"stacks = plain; spatial per image "
+                  f"{spread(out['times'][(name, n)])} (unsharded "
+                  f"{spread(out['times'][(name, 1)])}); card: {card}")
+            if rows_for and (n, name) in rows_for:
+                needle = "<int>" if fixed else "<float>"
+                k2n = ("describe_kernel<float, true" if name == "fixed exact"
+                       else "describe_kernel<float, false"
+                       if name == "float f32"
+                       else "describe_kernel<__nv_bfloat16")
+                with no_plain_versions():
+                    prof = profiled(torch, lambda: det.match(
+                        *det.detect_and_compute_pair(a, b)),
+                        ("tiled_kernel" + needle, "octave_kernel" + needle,
+                         k2n, "hamming_kernel"))
+                out["rows"][(n, name)] = dict(
+                    launches=launches, k1=k1c, k2=k2c,
+                    tiled=kernel_time(prof, "tiled_kernel" + needle),
+                    resident=kernel_time(prof, "octave_kernel" + needle),
+                    describe=kernel_time(prof, k2n))
+    return out
+
+
+def big_pairs():
+    """The 1920x2560 pair (B = A shifted by SHIFT) and its raw 0..255
+    form."""
+    dy, dx = SHIFT
+    tex = synthetic_texture(BIG_H + dy, BIG_W + dx, SEED + 21)
+    pair = (tex[:BIG_H, :BIG_W].copy(), tex[dy:, dx:].copy())
+    return {False: pair, True: tuple(quantise(x) for x in pair)}
+
+
+def phase_mesh_match(torch, dev, card):
+    """``sharded_match`` at 10000 x 10000 (the K4 stress inputs) over 4
+    shards: queries sharded, the train set gathered and compacted, K4 per
+    shard; ``Matches`` equal to unsharded K4's; K4 against its plain
+    version on each shard's inputs."""
+    from akaze_tpu_torch.match import match
+    from akaze_tpu_torch.ops import hamming as k4mod
+    from akaze_tpu_torch.parallel import gather_shards, sharded_match
+    w1, w2, v1, v2, x2, y2 = k4_stress_inputs(torch, dev)
+    mesh = cpu_mesh_of(4, dev)
+    want = match(w1, v1, w2, v2, x2, y2, 96)
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions(), recording(k4mod, "_launch") as calls:
+        got = gather_shards(sharded_match(w1, v1, w2, v2, x2, y2, mesh, 96),
+                            dev)
+        torch.cuda.synchronize()
+    launches = counters()["hamming"].launches
+    check(launches == 4, f"[mesh match] {launches} K4 launches")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(same, "[mesh match] sharded Matches differ from unsharded K4's")
+    err, plain_ms, nbytes, ops = 0, 0.0, 0, 0
+    for a, _ in calls:
+        g = k4mod.hamming_top2(*a)
+        t = cuda_times(torch, lambda: k4mod.hamming_top2_plain(*a), reps=1,
+                       warmup=0)[0]
+        p = k4mod.hamming_top2_plain(*a)
+        err = max(err, max(float((x - y).abs().max()) for x, y in zip(g, p)))
+        plain_ms += t
+        n1, n2 = int(a[3]), int(a[4])
+        nbytes += (n1 + n2) * 64 + n2 + 3 * 4 * a[0].shape[0]
+        ops += 2 * 486 * n1 * n2
+    check(err == 0, f"[mesh match] K4 on a shard disagrees: {err}")
+    fn = lambda: sharded_match(w1, v1, w2, v2, x2, y2, mesh, 96)  # noqa
+    times = cuda_times(torch, fn, reps=5)
+    ms, nl = kernel_time(profiled(torch, fn, ("hamming_kernel",)),
+                         "hamming_kernel")
+    bms, by = bound(nbytes, ops, INT8_TC_OPS_PER_S)
+    print(f"[mesh match] 10000 x 10000 over 4 shards on one card: Matches "
+          f"equal to unsharded K4's ({int((got.index >= 0).sum())} "
+          f"accepted); 4 K4 launches ({nl:.0f} in the trace), each = plain; "
+          f"device {ms:.4f} ms per call; call {spread(times)}; bound "
+          f"{bms * 1e3:.2f} us ({by}); card: {card}")
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                call_ms=float(np.median(times)))
+
+
+def phase_mesh_dp(torch, dev, card):
+    """``dp_pipeline_step``: 8 pairs at 960x1280 over 4 shards, each
+    shard running the pair program on its 2 pairs; every output equal to
+    the per-pair path's; K1 13, K2 1, K4 1 launches per pair."""
+    from akaze_tpu_torch import Akaze, AkazeConfig
+    from akaze_tpu_torch.parallel import dp_pipeline_step, gather_shards
+    dy, dx = SHIFT
+    tex = synthetic_texture(H + dy + DP_PAIRS, W + dx + DP_PAIRS, SEED + 31)
+    a = np.stack([tex[i:i + H, i:i + W] for i in range(DP_PAIRS)])
+    b = np.stack([tex[i + dy:i + dy + H, i + dx:i + dx + W]
+                  for i in range(DP_PAIRS)])
+    det = Akaze(AkazeConfig(max_pts=MAX_PTS), device=dev)
+    plan = det.plan_for(H, W)
+    mesh = cpu_mesh_of(4, dev)
+    at, bt = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions():
+        out = dp_pipeline_step(at, bt, plan, mesh)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {k: DP_PAIRS * v for k, v in MAIN_LAUNCHES.items()}
+    check(launches == want, f"[mesh dp] launches {launches}")
+    check(len(out[0]) == 4 and all(f.x.shape[0] == DP_PAIRS // 4
+                                   for f in out[0]), "[mesh dp] shards")
+    fa, fb, m = (gather_shards(x, dev) for x in out)
+    for i in range(DP_PAIRS):
+        ra, rb = det.detect_and_compute_pair(at[i], bt[i])
+        rm = det.match(ra, rb, plan.config.max_dist)
+        for got, ref in ((fa, ra), (fb, rb), (m, rm)):
+            for f, v in ref._asdict().items():
+                check(bool(torch.equal(getattr(got, f)[i], v)),
+                      f"[mesh dp] pair {i} {f} differs from the per-pair "
+                      f"path")
+    fn = lambda: dp_pipeline_step(at, bt, plan, mesh)  # noqa: E731
+    times = cuda_times(torch, fn, reps=3)
+    prof = profiled(torch, fn, ("tiled_kernel<float>", "octave_kernel<float>",
+                                "describe_kernel<__nv_bfloat16",
+                                "hamming_kernel"), reps=1)
+    print(f"[mesh dp] {DP_PAIRS} pairs of {H}x{W} over 4 shards on one "
+          f"card: launches {launches}; every output equal to the per-pair "
+          f"path's; step {spread(times)} "
+          f"({float(np.median(times)) / DP_PAIRS:.3f} ms per pair); card: "
+          f"{card}")
+    return dict(launches=launches, prof=prof, step_ms=float(np.median(times)))
+
+
+def slam_cell_problems(torch, dev):
+    """A pose graph and a local BA problem at the SLAM cell's sizes: 16
+    keyframes with 32 edge slots (a drifted chain plus loops, one an
+    outlier) and a 5-camera window with 512 landmarks."""
+    from akaze_tpu_torch.geometry import se3_compose, se3_exp, se3_inverse
+    from akaze_tpu_torch.slam.ba import BAProblem
+    from akaze_tpu_torch.slam.posegraph import PoseGraph
+    rng = np.random.default_rng(SEED + 41)
+    n = 16
+    xi = np.zeros((n, 6), np.float32)
+    xi[:, 0] = np.arange(n) * 0.5
+    xi[:, 4] = np.sin(np.arange(n) * 0.4) * 0.3
+    Rt, tt = se3_exp(torch.from_numpy(xi))
+    ei = list(range(n - 1)) + [0, 3, 5, 8, 2, 11, 1]
+    ej = list(range(1, n)) + [15, 12, 14, 13, 9, 15, 6]
+    Ri, ti = se3_inverse(Rt[ei], tt[ei])
+    Rij, tij = se3_compose(Ri, ti, Rt[ej], tt[ej])
+    tij[-1] += torch.tensor([2.0, 0.0, 0.0])
+    e = len(ei)
+    cap = 32
+    g = PoseGraph(
+        i=torch.tensor(ei + [0] * (cap - e), dtype=torch.int32),
+        j=torch.tensor(ej + [0] * (cap - e), dtype=torch.int32),
+        R_ij=torch.cat([Rij, torch.eye(3).expand(cap - e, 3, 3)]),
+        t_ij=torch.cat([tij, torch.zeros(cap - e, 3)]),
+        weight=torch.cat([torch.ones(e), torch.zeros(cap - e)]))
+    noise = torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32)
+                             * 0.05)
+    noise[0] = 0
+    R0, t0 = se3_compose(Rt, tt, *se3_exp(noise))
+    graph = (R0.to(dev), t0.to(dev), PoseGraph(*(f.to(dev) for f in g)))
+
+    n_cams, n_pts = 5, 512
+    X = rng.uniform([-3, -2, 6], [3, 2, 12], (n_pts, 3)).astype(np.float32)
+    xi = np.zeros((n_cams, 6), np.float32)
+    xi[:, 0] = np.arange(n_cams) * 0.3
+    Rc, tc = se3_inverse(*se3_exp(torch.from_numpy(xi)))
+    Xc = torch.einsum("cij,pj->cpi", Rc, torch.from_numpy(X)) + tc[:, None]
+    uv = Xc[..., :2] / Xc[..., 2:3]
+    keep = (rng.random((n_cams, n_pts)) < 0.8).reshape(-1)
+    cam = torch.arange(n_cams).repeat_interleave(n_pts)[keep]
+    pt = torch.arange(n_pts).repeat(n_cams)[keep]
+    m = int(keep.sum())
+    mcap = 1 << (m - 1).bit_length()
+    prob = BAProblem(
+        torch.cat([cam, torch.zeros(mcap - m, dtype=torch.int64)]).int(),
+        torch.cat([pt, torch.zeros(mcap - m, dtype=torch.int64)]).int(),
+        torch.cat([uv.reshape(-1, 2)[keep], torch.zeros(mcap - m, 2)]),
+        torch.cat([torch.ones(m), torch.zeros(mcap - m)]))
+    X0 = torch.from_numpy(X + rng.standard_normal(X.shape).astype(
+        np.float32) * 0.04)
+    return graph, (Rc, tc, X0, prob)
+
+
+def phase_mesh_solvers(torch, dev, card):
+    """Sharded PGO (edges, 4 shards, the SLAM cell's robust loss) and
+    landmark-sharded local BA (4 shards) at the SLAM cell's sizes, against
+    the single-device solvers on the card; two sharded runs bit for bit
+    equal; times per call."""
+    from akaze_tpu_torch.parallel import (gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          partition_landmarks,
+                                          sharded_optimize_pose_graph)
+    from akaze_tpu_torch.parallel.collectives import all_gather, traced
+    from akaze_tpu_torch.slam import SlamConfig
+    from akaze_tpu_torch.slam.ba import bundle_adjust
+    from akaze_tpu_torch.slam.posegraph import optimize_pose_graph
+    from akaze_tpu_torch.parallel import scatter_points
+    cfg = SlamConfig()
+    mesh = cpu_mesh_of(4, dev)
+    (R0, t0, g), (Rc, tc, X0, prob) = slam_cell_problems(torch, dev)
+    kw = dict(iters=10, robust=cfg.robust, robust_delta=cfg.robust_delta)
+    single = optimize_pose_graph(R0, t0, g, **kw)
+    runs = [sharded_optimize_pose_graph(R0, t0, g, mesh, **kw)
+            for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "[mesh pgo] two sharded runs differ")
+    dR = float((runs[0][0] - single[0]).abs().max())
+    dt = float((runs[0][1] - single[1]).abs().max()
+               / single[1].abs().max())
+    c1, c0 = float(runs[0][2]), float(single[2])
+    check(dR <= PGO_TOL and dt <= PGO_TOL
+          and abs(c1 - c0) <= 1e-3 * abs(c0) + 1e-9,
+          f"[mesh pgo] sharded against single-device: R {dR}, t {dt}, "
+          f"cost {c1} / {c0}")
+    pgo_t = cuda_times(torch, lambda: sharded_optimize_pose_graph(
+        R0, t0, g, mesh, **kw), reps=3)
+    pgo_1 = cuda_times(torch, lambda: optimize_pose_graph(R0, t0, g, **kw),
+                       reps=3)
+
+    n_cams, n_pts = Rc.shape[0], X0.shape[0]
+    mcap = prob.cam.shape[0]
+    part = partition_landmarks(prob, n_pts, 4,
+                               min_pts_per_shard=-(-n_pts // 4),
+                               min_obs_per_shard=-(-mcap // 4))
+    Xg = gather_points(part, X0)
+    args = (Rc.to(dev), tc.to(dev))
+    with traced() as log:
+        lb = [landmark_sharded_bundle_adjust(*args, Xg, part, mesh, iters=6)
+              for _ in range(2)]
+    check(all(torch.equal(x, y) for x, y in zip(lb[0][:2], lb[1][:2]))
+          and all(torch.equal(x, y) for x, y in zip(lb[0][2], lb[1][2])),
+          "[mesh ba] two sharded runs differ")
+    check(max(k for _, k in log) <= n_cams * 36,
+          "[mesh ba] a landmark-sized collective")
+    ref = bundle_adjust(*args, X0.to(dev), type(prob)(*(f.to(dev)
+                                                         for f in prob)),
+                        n_cams=n_cams, n_pts=n_pts, iters=6)
+    X1 = scatter_points(part, all_gather(lb[0][2], mesh, "data",
+                                         home_only=True))
+    cb, cr = float(lb[0][3]), float(ref[3])
+    dX = np.abs(X1 - ref[2].cpu().numpy())
+    okX = bool((dX <= 1e-3 + 1e-2 * np.abs(ref[2].cpu().numpy())).all())
+    dRb = float((lb[0][0] - ref[0]).abs().max())
+    check(abs(cb - cr) <= 1e-3 * abs(cr) + 1e-7 and okX and dRb <= 1e-4,
+          f"[mesh ba] sharded against single-device: cost {cb} / {cr}, "
+          f"X {dX.max()}, R {dRb}")
+    ba_t = cuda_times(torch, lambda: landmark_sharded_bundle_adjust(
+        *args, Xg, part, mesh, iters=6), reps=3)
+    ba_1 = cuda_times(torch, lambda: bundle_adjust(
+        *args, X0.to(dev), type(prob)(*(f.to(dev) for f in prob)),
+        n_cams=n_cams, n_pts=n_pts, iters=6), reps=3)
+    print(f"[mesh pgo] 16 poses, 32 edge slots over 4 shards ({cfg.robust} "
+          f"loss): two runs bit for bit equal; against single-device PGO "
+          f"R {dR:.3g}, t {dt:.3g} of the extent, cost {c1:.6g} / {c0:.6g}; per call "
+          f"sharded {spread(pgo_t)}, single {spread(pgo_1)}; card: {card}")
+    print(f"[mesh ba] 5 cameras, 512 landmarks, {mcap} observation slots "
+          f"over 4 landmark blocks: two runs bit for bit equal; largest "
+          f"collective {max(k for _, k in log)} elements ([C, 6, 6] = "
+          f"{n_cams * 36}); against single-device BA cost {cb:.6g} / "
+          f"{cr:.6g}, X {dX.max():.3g}, R {dRb:.3g}; per call sharded "
+          f"{spread(ba_t)}, single {spread(ba_1)}; card: {card}")
+    return dict(pgo_ms=float(np.median(pgo_t)), ba_ms=float(np.median(ba_t)))
+
+
+def phase_mesh_slam(torch, dev, card, frames, single):
+    """``SlamSystem(mesh=4 shards)`` on the TUM RGB-D route: detection
+    row-sharded (K1, K2 per shard on every frame, K4 on tracked frames),
+    sharded PGO and landmark-sharded local BA; keyframes and edges equal
+    to the single-device card run's (``single``); poses compared as P7-2
+    allows (printed: a plane under translation)."""
+    from akaze_tpu_torch import AkazeConfig
+    from akaze_tpu_torch.parallel import spatial_launches
+    from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    mesh = cpu_mesh_of(4, dev)
+    s = SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
+                   SlamConfig(local_ba_every=2), mesh=mesh)
+    log = instrument(s)
+    plan = s.vo.akaze.plan_for(SLAM_H, SLAM_W)
+    per = spatial_launches(plan, 4)
+    ms = []
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions():
+        for k, f in enumerate(frames):
+            before = {n: fn.launches for n, fn in counters().items()}
+            t = cuda_times(torch, lambda: s.process(f), reps=1, warmup=0)[0]
+            d = {n: fn.launches - before[n] for n, fn in counters().items()}
+            check(d["tiled"] == 4 * per["tiled"]
+                  and d["resident"] == 4 * per["resident"]
+                  and d["describe"] == 4 and (k == 0 or d["hamming"] >= 1),
+                  f"[mesh slam] frame {k}: launches {d}")
+            ms.append(t)
+    launches = {n: fn.launches for n, fn in counters().items()}
+    check(s.vo.akaze.mesh is mesh and s.vo.akaze.spatial_fallbacks == 0,
+          "[mesh slam] detection did not run sharded")
+    check([k.index for k in s.vo.keyframes]
+          == [k.index for k in single.vo.keyframes],
+          "[mesh slam] keyframes differ from the single-device run's")
+    check([e[:2] for e in s.edges] == [e[:2] for e in single.edges],
+          "[mesh slam] edges differ from the single-device run's")
+    for kf in s.vo.keyframes:
+        check(np.isfinite(kf.R).all() and np.isfinite(kf.t).all(),
+              "[mesh slam] a non-finite keyframe pose")
+    check(bool([c for n, c in log if n == "optimize"])
+          and any(c is not None for n, c in log
+                  if n == "local_bundle_adjust"),
+          "[mesh slam] no PGO or no local BA")
+    a, b = s.keyframe_trajectory(), single.keyframe_trajectory()
+    diff = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-9))
+    print(f"[mesh slam] {len(frames)} frames over 4 shards: launches "
+          f"{launches} (per frame K1 {4 * per['tiled']} tiled + "
+          f"{4 * per['resident']} resident, K2 4); {len(s.vo.keyframes)} "
+          f"keyframes and edges {[e[:2] for e in s.edges][-3:]}... equal to "
+          f"the single-device run's; keyframe trajectories differ by "
+          f"{diff:.3g} of the extent (P7-2: not gated); median frame "
+          f"{np.median(ms):.3f} ms, route {sum(ms) / 1e3:.3f} s; card: "
+          f"{card}")
+    return dict(launches=launches, frame_ms=float(np.median(ms)))
+
+
+def phase_mesh_cli(torch, dev, card, raw_pair, expected):
+    """The CLI's spatial lifecycle in this process: ``--spatial 4 --device
+    cuda:0 --json --iters 1``, counts equal to the main path's on the same
+    PGM pair, launch counters read (2 pair iterations of 2 row-sharded
+    images, 11 matches)."""
+    import contextlib as cl
+    import io
+    from akaze_tpu_torch import cli
+    from akaze_tpu_torch.io import save_pgm
+    from akaze_tpu_torch.parallel import spatial_launches
+    from akaze_tpu_torch import build_plan, AkazeConfig
+    per = spatial_launches(build_plan(H, W, AkazeConfig(max_pts=MAX_PTS)), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        lp, rp = os.path.join(tmp, "l.pgm"), os.path.join(tmp, "r.pgm")
+        save_pgm(lp, raw_pair[0])
+        save_pgm(rp, raw_pair[1])
+        for fn in counters().values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf), no_plain_versions():
+            cli.main(["--left", lp, "--right", rp, "--json", "--iters", "1",
+                      "--no-draw", "--spatial", "4", "--device", str(dev)])
+        torch.cuda.synchronize()
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {"tiled": 16 * per["tiled"], "resident": 16 * per["resident"],
+            "describe": 16, "hamming": 11}
+    counts = (rec["left_pts"], rec["right_pts"], rec["matches"])
+    check(counts == expected,
+          f"[mesh cli] {rec}; the main path gave {expected}")
+    check(launches == want, f"[mesh cli] launches {launches}")
+    print(f"[mesh cli] --spatial 4 --device {dev}: {json.dumps(rec)}; "
+          f"launches {launches}; counts equal to the main path's; card: "
+          f"{card}")
+    return rec
+
+
+def phase_mesh_dryrun(torch, dev):
+    from akaze_tpu_torch.parallel import dryrun_multichip
+    with no_plain_versions():
+        out = dryrun_multichip(4, devices=[dev] * 4)
+    check(all(np.isfinite(out[k]) for k in ("ba_cost", "pgo_cost",
+                                            "hostchip_lm_ba_cost"))
+          and out["spatial_count"] > 0 and out["matched"] > 0,
+          f"[mesh dryrun] {out}")
+    print(f"[mesh dryrun] dryrun_multichip(4) on one card: {out}")
+    return out
+
+
+def mesh_rows(spatial, match, dp, k1_rep, k2_rep, k4_rep):
+    """The sharded paths' rows of the kernels line."""
+    srcs = {"k1": "akaze_tpu_torch/csrc/sublevel.cu",
+            "k2": "akaze_tpu_torch/csrc/describe.cu",
+            "k4": "akaze_tpu_torch/csrc/hamming.cu"}
+    rows = []
+    for (n, name), r in sorted(spatial["rows"].items()):
+        sfx = f"_spatial{n}" + ("_fixed" if "fixed" in name else "")
+        k1, k2 = r["k1"], r["k2"]
+        for kind, key, err, plain, nb, no in (
+                ("tiled_kernel", "tiled", k1["max_abs_err"], k1["plain_ms"],
+                 k1["bytes"], k1["ops"]),
+                ("octave_kernel", "resident", k1["res_abs_err"],
+                 k1["res_plain_ms"], k1["res_bytes"], k1["res_ops"])):
+            bms, by = bound(nb, no)
+            rows.append(dict(name=kind + sfx, source=srcs["k1"],
+                             replaces=k1_rep, launches=r["launches"][key],
+                             max_abs_err=err, ms=r[key][0],
+                             plain_ms=plain, bound_ms=bms, bound_by=by))
+        bms, by = bound(k2["bytes"], 0)
+        rows.append(dict(name="describe_kernel" + sfx, source=srcs["k2"],
+                         replaces=k2_rep, launches=r["launches"]["describe"],
+                         max_abs_err=k2["max_abs_err"], ms=r["describe"][0],
+                         plain_ms=k2["plain_ms"], bound_ms=bms, bound_by=by))
+    rows.append(dict(name="hamming_kernel_sharded_match", source=srcs["k4"],
+                     replaces=k4_rep, launches=match["launches"],
+                     max_abs_err=match["max_abs_err"], ms=match["ms"],
+                     plain_ms=match["plain_ms"], bound_ms=match["bound_ms"],
+                     bound_by=match["bound_by"]))
+    return rows
+
+
 def k3_row_inputs(torch, dev, frame):
     """The single-image path's plan and one frame on the card."""
     from akaze_tpu_torch import Akaze, AkazeConfig
@@ -1488,12 +2204,31 @@ def main() -> int:
     # from the main path on that pair), homography and PnP, debug planes,
     # the native host runtime
     pgm = tuple(x.astype(np.float32) / 255.0 for x in (a8, b8))
-    phase_cli(torch, card, (a8, b8), {
-        False: main_path_counts(torch, det, *pgm, "main float pgm"),
-        True: pair_counts(*pair_ap)})
+    pgm_counts = main_path_counts(torch, det, *pgm, "main float pgm")
+    phase_cli(torch, card, (a8, b8), {False: pgm_counts,
+                                      True: pair_counts(*pair_ap)})
     phase_homography(torch, dev, card, fa_main, m_main, shift)
     phase_debug(torch, dev, card, a, plan)
     phase_native(card, frames)
+
+    # the multi-device tier, several shards on this one card
+    t0 = time.perf_counter()
+    flavours = mesh_flavours()
+    sp = phase_mesh_spatial(torch, dev, card, {False: (a, b), True: (a8, b8)},
+                            (2, 4), flavours, (H, W), shift,
+                            rows_for={(4, "float"), (4, "fixed exact")})
+    phase_mesh_spatial(torch, dev, card, big_pairs(), (4, 8),
+                       {k: flavours[k] for k in ("float", "fixed exact")},
+                       (BIG_H, BIG_W), SHIFT)
+    mesh_match = phase_mesh_match(torch, dev, card)
+    dp = phase_mesh_dp(torch, dev, card)
+    phase_mesh_solvers(torch, dev, card)
+    phase_mesh_slam(torch, dev, card, frames, slam["system"])
+    phase_mesh_cli(torch, dev, card, (a8, b8), pgm_counts)
+    phase_mesh_dryrun(torch, dev)
+    print(f"[mesh] every sharded path passed in "
+          f"{time.perf_counter() - t0:.1f} s; no kernel's plain version ran "
+          f"on the card inside one")
 
     k1_rep = "akaze_tpu/ops/pallas_sublevel.py:423"
     k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
@@ -1546,7 +2281,36 @@ def main() -> int:
                    "hamming_kernel_slam": "hamming"}[name]
         rows.append((name, src, rep, slam["launches"][counter], ms, r,
                      r["event_ms"], ms / max(per_frame, 1e-9)))
+    # the sharded paths' rows: per pair (spatial, 4 shards), per call
+    # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards; the
+    # shards run the main path's shapes, so its plain times, errors and
+    # bounds scale by the pairs)
+    mesh = mesh_rows(sp, mesh_match, dp, k1_rep, k2_rep, k4_rep)
+    for name, needle, r, key in (
+            ("tiled_kernel_dp", "tiled_kernel<float>", k1["tiled"], "tiled"),
+            ("octave_kernel_dp", "octave_kernel<float>", k1["resident"],
+             "resident"),
+            ("describe_kernel_dp", "describe_kernel<__nv_bfloat16", k2,
+             "describe"),
+            ("hamming_kernel_dp", "hamming_kernel", k4_main, "hamming")):
+        src = {"tiled": k1_src, "resident": k1_src, "describe": k2_src,
+               "hamming": k4_src}[key]
+        mesh.append(dict(name=name, source=src,
+                         replaces={"describe": k2_rep, "hamming": k4_rep}
+                         .get(key, k1_rep),
+                         launches=dp["launches"][key],
+                         max_abs_err=r["max_abs_err"],
+                         ms=kernel_time(dp["prof"], needle)[0],
+                         plain_ms=DP_PAIRS * r["plain_ms"],
+                         bound_ms=DP_PAIRS * r["bound_ms"],
+                         bound_by=r["bound_by"]))
     kernels = []
+    for row in mesh:
+        kernels.append(dict(row, route="cuda", library_ms=None))
+        print(f"[kernels] {row['name']}: {row['launches']} launches, device "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain {row['plain_ms']:.3f} ms, max abs "
+              f"err {row['max_abs_err']:.3g}")
     for name, src, rep, n, ms, r, event, per_launch in rows:
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": n, "max_abs_err": r["max_abs_err"], "ms": ms,

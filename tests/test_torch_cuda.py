@@ -1254,3 +1254,235 @@ def test_cli_on_card(cuda, tmp_path):
         tag = "fastakaze" if fixed else "akaze"
         for kind in ("keypoints", "matches"):
             assert (tmp_path / f"{tag}_{kind}.png").exists()
+
+
+# --------------------------------------------------------------------------
+# the multi-device tier with several shards on the one card
+# (akaze_tpu_torch.parallel): the sharded paths launch the kernels, never a
+# plain version, and give the unsharded card path's results
+# --------------------------------------------------------------------------
+
+def _card_mesh(cuda, n):
+    from akaze_tpu_torch.parallel import make_mesh
+    return make_mesh(n, devices=[cuda] * n)
+
+
+def _launch_counts():
+    return {"tiled": k1.sublevel.launches, "resident": k1.octave.launches,
+            "describe": k2.describe.launches,
+            "hamming": k4.hamming_top2.launches}
+
+
+def _reset_counts():
+    k1.sublevel.launches = k1.octave.launches = 0
+    k2.describe.launches = k4.hamming_top2.launches = 0
+
+
+def _same_features(got, want):
+    n = int(want.count)
+    assert int(got.count) == n and torch.equal(got.valid, want.valid)
+    for f in ("x", "y", "size", "layer", "response", "angle", "words"):
+        assert torch.equal(getattr(got, f)[:n], getattr(want, f)[:n]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_spatial_tier_on_card_equals_unsharded(cuda, monkeypatch, fixed, n):
+    """480x640 (the SLAM cell's frame) row-sharded on the card: features
+    bit for bit the unsharded card path's, K1/K2 launches per shard as the
+    route predicts, no plain version run."""
+    from akaze_tpu_torch.parallel import spatial_launches
+    for mod, name in ((k1, "sublevel_plain"), (k1, "octave_plain"),
+                      (k2, "describe_plain"), (k4, "hamming_top2_plain")):
+        monkeypatch.setattr(mod, name, None)
+    h, w = 480, 640
+    img = texture(h, w, seed=3)
+    if fixed:
+        img = (img * 255).astype(np.uint8)
+    cfg = AkazeConfig(max_pts=4000)
+    ref = Akaze(cfg, fixed=fixed, device=cuda).detect_and_compute(img)
+    det = Akaze(cfg, fixed=fixed, mesh=_card_mesh(cuda, n))
+    _reset_counts()
+    got = det.detect_and_compute(img)
+    torch.cuda.synchronize()
+    per = spatial_launches(det.plan_for(h, w), n)
+    assert _launch_counts() == {"tiled": n * per["tiled"],
+                                "resident": n * per["resident"],
+                                "describe": n, "hamming": 0}
+    assert int(ref.count) > 200
+    _same_features(got, ref)
+
+
+@pytest.mark.cuda
+def test_sharded_match_on_card_equals_unsharded(cuda):
+    from akaze_tpu_torch.match import match
+    from akaze_tpu_torch.parallel import gather_shards, sharded_match
+    rng = np.random.default_rng(5)
+    n = 3000
+    b = torch.from_numpy(rng.integers(0, 2, (2, n, 486)).astype(bool))
+    w1, w2 = pack_bits(b[0]).to(cuda), pack_bits(b[1]).to(cuda)
+    v1 = torch.ones(n, dtype=torch.bool, device=cuda)
+    v2 = torch.from_numpy(rng.random(n) > 0.3).to(cuda)
+    xy = torch.from_numpy(rng.uniform(0, 100, (2, n)).astype(np.float32))
+    x2, y2 = xy[0].to(cuda), xy[1].to(cuda)
+    _reset_counts()
+    got = gather_shards(sharded_match(w1, v1, w2, v2, x2, y2,
+                                      _card_mesh(cuda, 4), 200), cuda)
+    assert k4.hamming_top2.launches == 4
+    want = match(w1, v1, w2, v2, x2, y2, 200)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_dp_step_on_card_equals_per_pair(cuda):
+    from akaze_tpu_torch.parallel import dp_pipeline_step, gather_shards
+    from akaze_tpu_torch.match import match
+    a, b = pair()
+    imgs_a = torch.stack([torch.as_tensor(a)] * 2 + [torch.as_tensor(b)] * 2)
+    imgs_b = torch.stack([torch.as_tensor(b)] * 2 + [torch.as_tensor(a)] * 2)
+    cfg = AkazeConfig(max_pts=2000)
+    plan = build_plan(*a.shape, cfg)
+    _reset_counts()
+    fa, fb, m = (gather_shards(x, cuda) for x in dp_pipeline_step(
+        imgs_a.to(cuda), imgs_b.to(cuda), plan, _card_mesh(cuda, 2)))
+    assert _launch_counts()["describe"] == 4
+    assert _launch_counts()["hamming"] == 4
+    det = Akaze(cfg, device=cuda)
+    for i in range(4):
+        ra, rb = det.detect_and_compute_pair(imgs_a[i], imgs_b[i])
+        rm = match(ra.words, ra.valid, rb.words, rb.valid, rb.x, rb.y,
+                   cfg.max_dist)
+        for got, want in ((fa, ra), (fb, rb), (m, rm)):
+            for f, v in want._asdict().items():
+                assert torch.equal(getattr(got, f)[i], v), f
+
+
+@pytest.mark.cuda
+def test_sharded_solvers_on_card(cuda):
+    """Sharded PGO and landmark-sharded BA on 4 card shards against the
+    single-device solvers on the card (R within 1e-3, JAX's
+    tests/test_parallel.py bound; costs within 1e-3 relative); two runs
+    bit for bit equal; no collective of the landmark-sharded BA carries a
+    landmark-sized operand."""
+    from akaze_tpu_torch.geometry import se3_compose, se3_exp, se3_inverse
+    from akaze_tpu_torch.parallel import (gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          partition_landmarks,
+                                          sharded_optimize_pose_graph)
+    from akaze_tpu_torch.parallel.collectives import traced
+    from akaze_tpu_torch.slam.ba import BAProblem, bundle_adjust
+    from akaze_tpu_torch.slam.posegraph import (PoseGraph,
+                                                optimize_pose_graph)
+    mesh = _card_mesh(cuda, 4)
+    rng = np.random.default_rng(8)
+    n = 8
+    xi = torch.zeros(n, 6)
+    xi[:, 0] = torch.arange(n) * 0.5
+    Rt, tt = se3_exp(xi)
+    ei, ej = list(range(n - 1)) + [0], list(range(1, n)) + [n - 1]
+    Rij, tij = se3_compose(*se3_inverse(Rt[ei], tt[ei]), Rt[ej], tt[ej])
+    g = PoseGraph(torch.tensor(ei, dtype=torch.int32).to(cuda),
+                  torch.tensor(ej, dtype=torch.int32).to(cuda),
+                  Rij.to(cuda), tij.to(cuda), torch.ones(n, device=cuda))
+    noise = torch.from_numpy(rng.standard_normal((n, 6)).astype(
+        np.float32) * 0.03)
+    noise[0] = 0
+    R0, t0 = (v.to(cuda) for v in se3_compose(Rt, tt, *se3_exp(noise)))
+    single = optimize_pose_graph(R0, t0, g, iters=6, robust="cauchy",
+                                 robust_delta=10.0)
+    runs = [sharded_optimize_pose_graph(R0, t0, g, mesh, iters=6,
+                                        robust="cauchy", robust_delta=10.0)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert float((runs[0][0] - single[0]).abs().max()) < 1e-3
+    assert abs(float(runs[0][2]) - float(single[2])) <= (
+        1e-3 * float(single[2]) + 1e-9)
+
+    n_cams, n_pts = 4, 64
+    X = rng.uniform([-2, -2, 6], [2, 2, 10], (n_pts, 3)).astype(np.float32)
+    xi = torch.zeros(n_cams, 6)
+    xi[:, 0] = torch.arange(n_cams) * 0.3
+    Rc, tc = se3_inverse(*se3_exp(xi))
+    Xc = torch.einsum("cij,pj->cpi", Rc, torch.from_numpy(X)) + tc[:, None]
+    uv = (Xc[..., :2] / Xc[..., 2:3]).reshape(-1, 2)
+    prob = BAProblem(torch.arange(n_cams).repeat_interleave(n_pts).int(),
+                     torch.arange(n_pts).repeat(n_cams).int(), uv,
+                     torch.ones(n_cams * n_pts))
+    X0 = torch.from_numpy(X + rng.standard_normal(X.shape).astype(
+        np.float32) * 0.04)
+    part = partition_landmarks(prob, n_pts, 4)
+    with traced() as log:
+        lb = [landmark_sharded_bundle_adjust(Rc, tc, gather_points(part, X0),
+                                             part, mesh, iters=5)
+              for _ in range(2)]
+    assert max(k for _, k in log) <= n_cams * 36
+    assert torch.equal(lb[0][3], lb[1][3])
+    ref = bundle_adjust(Rc.to(cuda), tc.to(cuda), X0.to(cuda),
+                        BAProblem(*(f.to(cuda) for f in prob)),
+                        n_cams=n_cams, n_pts=n_pts, iters=5)
+    np.testing.assert_allclose(float(lb[0][3]), float(ref[3]), rtol=1e-3,
+                               atol=1e-7)
+    assert float((lb[0][0] - ref[0]).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_slam_system_mesh_on_card(cuda):
+    """``SlamSystem(mesh=2 card shards)`` on the small image route: the
+    spatial tier's features are the single-device ones, so keyframes and
+    edges equal the single-device card run's."""
+    from akaze_tpu_torch.io import synthetic_sequence
+    from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    frames, _ = synthetic_sequence(np.random.default_rng(3), n_frames=9,
+                                   size=(160, 224),
+                                   shift_per_frame=(0.0, 10.0), n_blobs=300)
+    images = [frames[k].astype(np.float32) / 255.0 for k in (0, 4, 8, 7, 3)]
+    runs = []
+    for kw in ({"device": cuda}, {"mesh": _card_mesh(cuda, 2)}):
+        s = SlamSystem(Intrinsics(fx=200.0, fy=200.0, cx=112.0, cy=80.0),
+                       AkazeConfig(max_pts=512, noctaves=2,
+                                   dthreshold=5e-5),
+                       SlamConfig(optimize_every=4, min_loop_gap=2,
+                                  loop_min_matches=25, loop_min_inliers=8,
+                                  loop_candidates=2, max_loops_per_kf=1,
+                                  local_ba_every=3, local_ba_window=3,
+                                  local_ba_points=64),
+                       min_inliers=6, keyframe_inlier_ratio=1.05, **kw)
+        for f in images:
+            s.process(f)
+        runs.append(s)
+    single, sharded = runs
+    assert sharded.vo.akaze.spatial_fallbacks == 0
+    assert ([k.index for k in sharded.vo.keyframes]
+            == [k.index for k in single.vo.keyframes])
+    assert [e[:2] for e in sharded.edges] == [e[:2] for e in single.edges]
+    for a, b in zip(sharded.vo.keyframes, single.vo.keyframes):
+        assert torch.equal(a.features.words, b.features.words)
+
+
+@pytest.mark.cuda
+def test_cli_spatial_and_dryrun_on_card(cuda, tmp_path):
+    import contextlib
+    import io
+    import json
+    from akaze_tpu_torch import cli
+    from akaze_tpu_torch.io import save_pgm
+    from akaze_tpu_torch.parallel import dryrun_multichip
+    paths = []
+    for name, img in zip(("l", "r"), raw_pair()):
+        paths.append(str(tmp_path / f"{name}.pgm"))
+        save_pgm(paths[-1], img)
+    recs = []
+    for extra in ([], ["--spatial", "2", "--device", str(cuda) + ":0"
+                       if cuda.index is None else str(cuda)]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--left", paths[0], "--right", paths[1], "--json",
+                      "--iters", "1", "--max-pts", "2000", "--no-draw"]
+                     + extra)
+        recs.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+    for k in ("left_pts", "right_pts", "matches"):
+        assert recs[0][k] == recs[1][k], k
+    res = dryrun_multichip(4, devices=[cuda] * 4)
+    assert res["spatial_count"] > 0 and np.isfinite(res["ba_cost"])

@@ -61,7 +61,16 @@ def test_import_leaves_jax_out():
             "akaze_tpu_torch.geometry, akaze_tpu_torch.slam, "
             "akaze_tpu_torch.geometry.homography, akaze_tpu_torch.native, "
             "akaze_tpu_torch.viz, akaze_tpu_torch.debug, "
-            "akaze_tpu_torch.cli, akaze_tpu_torch.testing; "
+            "akaze_tpu_torch.cli, akaze_tpu_torch.testing, "
+            "akaze_tpu_torch.parallel, akaze_tpu_torch.parallel.mesh, "
+            "akaze_tpu_torch.parallel.collectives, "
+            "akaze_tpu_torch.parallel.sharded_match, "
+            "akaze_tpu_torch.parallel.sharded_pgo, "
+            "akaze_tpu_torch.parallel.sharded_ba, "
+            "akaze_tpu_torch.parallel.data_parallel, "
+            "akaze_tpu_torch.parallel.distributed, "
+            "akaze_tpu_torch.parallel.spatial, "
+            "akaze_tpu_torch.parallel.dryrun; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'akaze_tpu.')) or m == 'akaze_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -398,10 +398,12 @@ def test_cli_text_output_and_no_draw(cli_pair, tmp_path):
 def test_cli_refuses_spatial_and_missing_files(cli_pair, tmp_path,
                                                monkeypatch, capsys):
     lp, rp = cli_pair
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(SystemExit) as e:     # 160 rows over 3 shards
         cli.main(["--left", lp, "--right", rp, "--device", "cpu",
-                  "--spatial", "2"])
+                  "--spatial", "3"])
     assert e.value.code == 2
+    assert "--spatial 3: octave 0 height 160 not divisible" in (
+        capsys.readouterr().err)
     with pytest.raises(FileNotFoundError):
         cli.main(["--left", str(tmp_path / "absent.pgm"), "--right", rp,
                   "--device", "cpu"])

@@ -123,17 +123,15 @@ def main(argv=None):
         left_in, right_in = left, right
 
     cfg = AkazeConfig(max_pts=args.max_pts)
-    mesh = None
-    if args.spatial > 1:
-        mesh = spatial_mesh(args.spatial, args.device)
-        from .parallel import spatial_supported
-        from .plan import build_plan
-        ok, why = spatial_supported(build_plan(*left.shape, cfg),
-                                    args.spatial, detect=True, describe=True)
-        if not ok:
-            ap.error(f"--spatial {args.spatial}: {why}")
+    mesh = (spatial_mesh(args.spatial, args.device) if args.spatial > 1
+            else None)
     det = Akaze(cfg, fixed=args.fixed, mesh=mesh,
                 device=None if mesh else args.device)
+    if mesh is not None:
+        try:
+            det.sharded(*left.shape)
+        except ValueError as e:
+            ap.error(f"--spatial {args.spatial}: {e}")
     dev = det.device
     dtype = torch.int32 if args.fixed else torch.float32
     la = torch.as_tensor(left_in, device=dev).to(dtype)

@@ -161,6 +161,17 @@ def _only(xs):
     return xs[0]
 
 
+class _Shard(NamedTuple):
+    """One shard's edges and what the loop derives from them once."""
+    graph: PoseGraph
+    dev: torch.device
+    i: torch.Tensor       # [E] int64 source node
+    j: torch.Tensor       # [E] int64 target node
+    hot_i: torch.Tensor   # [E, N] one-hot of i
+    hot_j: torch.Tensor   # [E, N] one-hot of j
+    free: torch.Tensor    # [N, 1] 1 for a free pose, 0 for a fixed one
+
+
 def gauss_newton(R, t, graphs, fixed_mask, iters: int, cg_iters: int,
                  damping: float, robust: str, robust_delta: float,
                  reduce, gather):
@@ -176,65 +187,59 @@ def gauss_newton(R, t, graphs, fixed_mask, iters: int, cg_iters: int,
     free = (~fixed_mask).to(R.dtype)[:, None]
     shards = []
     for g in graphs:
-        dev = g.weight.device
+        d = g.weight.device
         i, j = g.i.long(), g.j.long()
-        shards.append((g, dev, i, j, one_hot(i, n, R.dtype),
-                       one_hot(j, n, R.dtype), free.to(dev)))
-
-    def on(x, dev):
-        return x.to(dev)
+        shards.append(_Shard(g, d, i, j, one_hot(i, n, R.dtype),
+                             one_hot(j, n, R.dtype), free.to(d)))
 
     def cost_h(R, t, hs):
-        def one(g, d, h):
-            r = _edge_residuals(on(R, d), on(t, d), g) * h[:, None]
+        def one(s, h):
+            r = _edge_residuals(R.to(s.dev), t.to(s.dev), s.graph) * h[:, None]
             return 0.5 * torch.sum(r * r)
-        return reduce([one(g, d, h) for (g, d, *_), h in zip(shards, hs)])
+        return reduce([one(s, h) for s, h in zip(shards, hs)])
+
+    def jt(s, Ji, Jj, u):
+        """J^T u of one shard, [N, 6]: u [E, 6] per edge."""
+        u = u[..., None]
+        return (segment_sum((Ji.transpose(1, 2) @ u)[..., 0], s.hot_i)
+                + segment_sum((Jj.transpose(1, 2) @ u)[..., 0], s.hot_j))
 
     for _ in range(iters):
-        rs = [_edge_residuals(on(R, d), on(t, d), g)
-              for g, d, *_ in shards]
+        rs = [_edge_residuals(R.to(s.dev), t.to(s.dev), s.graph)
+              for s in shards]
         if robust in ("huber", "cauchy"):
             norms = [torch.sqrt(torch.sum(r * r, dim=-1)) for r in rs]
             delta = _robust_delta(gather(norms),
-                                  gather([g.weight > 0 for g, *_ in shards]),
+                                  gather([s.graph.weight > 0
+                                          for s in shards]),
                                   robust_delta)
-            hs = [_irls_weights(nrm, on(delta, d), robust)
-                  for nrm, (_, d, *_) in zip(norms, shards)]
+            hs = [_irls_weights(nrm, delta.to(s.dev), robust)
+                  for nrm, s in zip(norms, shards)]
         else:
-            hs = [torch.ones_like(g.weight) for g, *_ in shards]
+            hs = [torch.ones_like(s.graph.weight) for s in shards]
         # derivative blocks of r_e * h_e in the free updates xi * free
-        ops = []
-        for (g, d, i, j, hot_i, hot_j, fr), h in zip(shards, hs):
-            Rd, td = on(R, d), on(t, d)
-            Ji, Jj = _edge_blocks(Rd[i], td[i], Rd[j], td[j], g.R_ij,
-                                  g.t_ij, g.weight)
-            Ji = Ji * (h[:, None] * fr[i])[..., None]
-            Jj = Jj * (h[:, None] * fr[j])[..., None]
-            ops.append((d, i, j, hot_i, hot_j, Ji, Jj,
-                        Ji.transpose(1, 2), Jj.transpose(1, 2)))
-
-        def jtj(op, v):
-            d, i, j, hot_i, hot_j, Ji, Jj, JiT, JjT = op
-            v = on(v, d)
-            u = (Ji @ v[i][..., None] + Jj @ v[j][..., None])
-            return (segment_sum((JiT @ u)[..., 0], hot_i)
-                    + segment_sum((JjT @ u)[..., 0], hot_j))
-
-        def jt(op, r):
-            d, i, j, hot_i, hot_j, Ji, Jj, JiT, JjT = op
-            u = r[..., None]
-            return (segment_sum((JiT @ u)[..., 0], hot_i)
-                    + segment_sum((JjT @ u)[..., 0], hot_j))
+        blocks = []
+        for s, h in zip(shards, hs):
+            Rd, td, g = R.to(s.dev), t.to(s.dev), s.graph
+            Ji, Jj = _edge_blocks(Rd[s.i], td[s.i], Rd[s.j], td[s.j],
+                                  g.R_ij, g.t_ij, g.weight)
+            blocks.append((Ji * (h[:, None] * s.free[s.i])[..., None],
+                           Jj * (h[:, None] * s.free[s.j])[..., None]))
 
         def matvec(v):
-            return reduce([jtj(op, v) for op in ops]) + damping * v
+            parts = []
+            for s, (Ji, Jj) in zip(shards, blocks):
+                vd = v.to(s.dev)
+                u = Ji @ vd[s.i][..., None] + Jj @ vd[s.j][..., None]
+                parts.append(jt(s, Ji, Jj, u[..., 0]))
+            return reduce(parts) + damping * v
 
-        g = reduce([jt(op, r * h[:, None])
-                    for op, r, h in zip(ops, rs, hs)])
+        g = reduce([jt(s, Ji, Jj, r * h[:, None])
+                    for s, (Ji, Jj), r, h in zip(shards, blocks, rs, hs)])
         dx = cg(matvec, -g, cg_iters) * free
         R2, t2 = _retract(R, t, dx)
         better = cost_h(R2, t2, hs) < cost_h(R, t, hs)
         R = torch.where(better, R2, R)
         t = torch.where(better, t2, t)
-    return R, t, reduce([pose_graph_cost(on(R, d), on(t, d), g)
-                         for g, d, *_ in shards])
+    return R, t, reduce([pose_graph_cost(R.to(s.dev), t.to(s.dev), s.graph)
+                         for s in shards])

@@ -1557,6 +1557,29 @@ def check_k2_calls(torch, calls, tag):
     return out
 
 
+def check_k4_calls(torch, calls, tag):
+    """K4 against its plain version on the launches a sharded path made
+    (each shard's queries against its train set): all three outputs
+    exact.  Returns the error, the plain versions' time (each call once,
+    between CUDA events) and the bound of the work."""
+    from akaze_tpu_torch.ops import hamming as k4mod
+    err, plain_ms, nbytes, ops = 0, 0.0, 0, 0
+    for a, _ in calls:
+        g = k4mod.hamming_top2(*a)
+        t = cuda_times(torch, lambda: k4mod.hamming_top2_plain(*a), reps=1,
+                       warmup=0)[0]
+        p = k4mod.hamming_top2_plain(*a)
+        err = max(err, max(float((x - y).abs().max()) for x, y in zip(g, p)))
+        plain_ms += t
+        n1, n2 = int(a[3]), int(a[4])
+        nbytes += (n1 + n2) * 64 + n2 + 3 * 4 * a[0].shape[0]
+        ops += 2 * 486 * n1 * n2
+    check(err == 0, f"[{tag}] K4 on a shard disagrees: {err}")
+    bms, by = bound(nbytes, ops, INT8_TC_OPS_PER_S)
+    return dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
+
+
 def compare_features(torch, got, want, tag, exact_xy: bool):
     """Sharded features against the unsharded path's: counts, layers and
     validity equal, x/y within ``MESH_XY_TOL`` (fixed: exact), angles
@@ -1740,23 +1763,13 @@ def phase_mesh_match(torch, dev, card):
     check(launches == 4, f"[mesh match] {launches} K4 launches")
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     check(same, "[mesh match] sharded Matches differ from unsharded K4's")
-    err, plain_ms, nbytes, ops = 0, 0.0, 0, 0
-    for a, _ in calls:
-        g = k4mod.hamming_top2(*a)
-        t = cuda_times(torch, lambda: k4mod.hamming_top2_plain(*a), reps=1,
-                       warmup=0)[0]
-        p = k4mod.hamming_top2_plain(*a)
-        err = max(err, max(float((x - y).abs().max()) for x, y in zip(g, p)))
-        plain_ms += t
-        n1, n2 = int(a[3]), int(a[4])
-        nbytes += (n1 + n2) * 64 + n2 + 3 * 4 * a[0].shape[0]
-        ops += 2 * 486 * n1 * n2
-    check(err == 0, f"[mesh match] K4 on a shard disagrees: {err}")
+    k4c = check_k4_calls(torch, calls, "mesh match")
+    err, plain_ms = k4c["max_abs_err"], k4c["plain_ms"]
     fn = lambda: sharded_match(w1, v1, w2, v2, x2, y2, mesh, 96)  # noqa
     times = cuda_times(torch, fn, reps=5)
     ms, nl = kernel_time(profiled(torch, fn, ("hamming_kernel",)),
                          "hamming_kernel")
-    bms, by = bound(nbytes, ops, INT8_TC_OPS_PER_S)
+    bms, by = k4c["bound_ms"], k4c["bound_by"]
     print(f"[mesh match] 10000 x 10000 over 4 shards on one card: Matches "
           f"equal to unsharded K4's ({int((got.index >= 0).sum())} "
           f"accepted); 4 K4 launches ({nl:.0f} in the trace), each = plain; "
@@ -1770,8 +1783,12 @@ def phase_mesh_match(torch, dev, card):
 def phase_mesh_dp(torch, dev, card):
     """``dp_pipeline_step``: 8 pairs at 960x1280 over 4 shards, each
     shard running the pair program on its 2 pairs; every output equal to
-    the per-pair path's; K1 13, K2 1, K4 1 launches per pair."""
-    from akaze_tpu_torch import Akaze, AkazeConfig
+    the per-pair path's; K1 13, K2 1, K4 1 launches per pair; K1, K2 and
+    K4 against their plain versions on the step's own launches, with
+    bounds from those inputs."""
+    from akaze_tpu_torch import Akaze, AkazeConfig, scale_space
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.ops import hamming as k4mod
     from akaze_tpu_torch.parallel import dp_pipeline_step, gather_shards
     dy, dx = SHIFT
     tex = synthetic_texture(H + dy + DP_PAIRS, W + dx + DP_PAIRS, SEED + 31)
@@ -1784,12 +1801,18 @@ def phase_mesh_dp(torch, dev, card):
     at, bt = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
     for fn in counters().values():
         fn.launches = 0
-    with no_plain_versions():
+    with no_plain_versions(), \
+            recording(scale_space, "octave") as octaves, \
+            recording(k2mod, "_launch") as k2calls, \
+            recording(k4mod, "_launch") as k4calls:
         out = dp_pipeline_step(at, bt, plan, mesh)
         torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
     want = {k: DP_PAIRS * v for k, v in MAIN_LAUNCHES.items()}
     check(launches == want, f"[mesh dp] launches {launches}")
+    k1c = check_k1_calls(torch, [], octaves, False, "mesh dp")
+    k2c = check_k2_calls(torch, k2calls, "mesh dp")
+    k4c = check_k4_calls(torch, k4calls, "mesh dp")
     check(len(out[0]) == 4 and all(f.x.shape[0] == DP_PAIRS // 4
                                    for f in out[0]), "[mesh dp] shards")
     fa, fb, m = (gather_shards(x, dev) for x in out)
@@ -1808,10 +1831,12 @@ def phase_mesh_dp(torch, dev, card):
                                 "hamming_kernel"), reps=1)
     print(f"[mesh dp] {DP_PAIRS} pairs of {H}x{W} over 4 shards on one "
           f"card: launches {launches}; every output equal to the per-pair "
-          f"path's; step {spread(times)} "
+          f"path's; K1 on {len(octaves)} octaves, K2 on {len(k2calls)} and "
+          f"K4 on {len(k4calls)} launches = plain; step {spread(times)} "
           f"({float(np.median(times)) / DP_PAIRS:.3f} ms per pair); card: "
           f"{card}")
-    return dict(launches=launches, prof=prof, step_ms=float(np.median(times)))
+    return dict(launches=launches, prof=prof, step_ms=float(np.median(times)),
+                k1=k1c, k2=k2c, k4=k4c)
 
 
 def slam_cell_problems(torch, dev):
@@ -2083,6 +2108,29 @@ def mesh_rows(spatial, match, dp, k1_rep, k2_rep, k4_rep):
                      max_abs_err=match["max_abs_err"], ms=match["ms"],
                      plain_ms=match["plain_ms"], bound_ms=match["bound_ms"],
                      bound_by=match["bound_by"]))
+    # the dp step: every number from its own launches
+    k1, k2, k4 = dp["k1"], dp["k2"], dp["k4"]
+    for name, needle, key, src, rep, err, plain, nb, no in (
+            ("tiled_kernel_dp", "tiled_kernel<float>", "tiled", "k1",
+             k1_rep, k1["max_abs_err"], k1["plain_ms"], k1["bytes"],
+             k1["ops"]),
+            ("octave_kernel_dp", "octave_kernel<float>", "resident", "k1",
+             k1_rep, k1["res_abs_err"], k1["res_plain_ms"],
+             k1["res_bytes"], k1["res_ops"]),
+            ("describe_kernel_dp", "describe_kernel<__nv_bfloat16",
+             "describe", "k2", k2_rep, k2["max_abs_err"], k2["plain_ms"],
+             k2["bytes"], 0)):
+        bms, by = bound(nb, no)
+        rows.append(dict(name=name, source=srcs[src], replaces=rep,
+                         launches=dp["launches"][key], max_abs_err=err,
+                         ms=kernel_time(dp["prof"], needle)[0],
+                         plain_ms=plain, bound_ms=bms, bound_by=by))
+    rows.append(dict(name="hamming_kernel_dp", source=srcs["k4"],
+                     replaces=k4_rep, launches=dp["launches"]["hamming"],
+                     max_abs_err=k4["max_abs_err"],
+                     ms=kernel_time(dp["prof"], "hamming_kernel")[0],
+                     plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+                     bound_by=k4["bound_by"]))
     return rows
 
 
@@ -2282,28 +2330,8 @@ def main() -> int:
         rows.append((name, src, rep, slam["launches"][counter], ms, r,
                      r["event_ms"], ms / max(per_frame, 1e-9)))
     # the sharded paths' rows: per pair (spatial, 4 shards), per call
-    # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards; the
-    # shards run the main path's shapes, so its plain times, errors and
-    # bounds scale by the pairs)
+    # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards)
     mesh = mesh_rows(sp, mesh_match, dp, k1_rep, k2_rep, k4_rep)
-    for name, needle, r, key in (
-            ("tiled_kernel_dp", "tiled_kernel<float>", k1["tiled"], "tiled"),
-            ("octave_kernel_dp", "octave_kernel<float>", k1["resident"],
-             "resident"),
-            ("describe_kernel_dp", "describe_kernel<__nv_bfloat16", k2,
-             "describe"),
-            ("hamming_kernel_dp", "hamming_kernel", k4_main, "hamming")):
-        src = {"tiled": k1_src, "resident": k1_src, "describe": k2_src,
-               "hamming": k4_src}[key]
-        mesh.append(dict(name=name, source=src,
-                         replaces={"describe": k2_rep, "hamming": k4_rep}
-                         .get(key, k1_rep),
-                         launches=dp["launches"][key],
-                         max_abs_err=r["max_abs_err"],
-                         ms=kernel_time(dp["prof"], needle)[0],
-                         plain_ms=DP_PAIRS * r["plain_ms"],
-                         bound_ms=DP_PAIRS * r["bound_ms"],
-                         bound_by=r["bound_by"]))
     kernels = []
     for row in mesh:
         kernels.append(dict(row, route="cuda", library_ms=None))

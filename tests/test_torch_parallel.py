@@ -24,10 +24,17 @@ Tolerances:
     bits, match indices exact);
   - ``SlamSystem(mesh)`` with JAX's draws replayed, against the
     single-device run of the same configuration (which
-    tests/test_torch_slam.py holds to JAX's): on a 3-D scene keyframes and
-    edges equal, trajectories within 1e-2 of the map's extent (the JAX
-    package's own mesh-vs-single bound, tests/test_vo_sequence.py:205-240);
-    on the image route keyframes, edges and features equal.
+    tests/test_torch_slam.py holds to JAX's) and against JAX's
+    ``SlamSystem(mesh)``: on a 3-D scene keyframes and edges equal,
+    trajectories within 1e-2 of the map's extent (the JAX package's own
+    mesh-vs-single bound, tests/test_vo_sequence.py:205-240); on the image
+    route keyframes and edges equal, features equal to the single-device
+    run's and within the pair path's tolerances of JAX's, descriptors
+    within 1 flipped bit of JAX's (ROADMAP P9-6: on this planar route the
+    bf16 planes' rounding flips one near-tied bit on 4 of 5 frames, on one
+    device as well; 0 on f32 planes);
+  - the CLI's ``--spatial`` counts equal to the single-device run's and to
+    the JAX CLI's ``--spatial 2``.
 """
 
 import json
@@ -493,9 +500,12 @@ def test_dryrun_multichip_on_cpu_shards():
         assert np.isfinite(out[k]) and out[k] < 1e-3, k
 
 
-def test_cli_spatial_matches_single_device(tmp_path, capsys, test_image):
+def test_cli_spatial_matches_single_device(tmp_path, capsys, monkeypatch,
+                                           test_image):
     """``--spatial 2`` and ``--spatial 4`` on CPU shards give the counts of
-    the single-device run."""
+    the single-device run and of the JAX CLI's ``--spatial 2`` (its timing
+    scans, which report only times, are replaced by zeros)."""
+    from akaze_tpu import cli as jcli
     from akaze_tpu_torch import cli
     from akaze_tpu_torch.io import save_pgm
     a = (test_image[:, :248] * 255).astype(np.uint8)
@@ -509,6 +519,10 @@ def test_cli_spatial_matches_single_device(tmp_path, capsys, test_image):
     for extra in ([], ["--spatial", "2"], ["--spatial", "4"]):
         cli.main(base + extra)
         outs.append(json.loads(capsys.readouterr().out.strip()))
+    monkeypatch.setattr("akaze_tpu.profiling.scan_time",
+                        lambda *a, **kw: 0.0)
+    jcli.main(base[:4] + base[6:] + ["--spatial", "2"])
+    outs.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
     for o in outs[1:]:
         for k in ("left_pts", "right_pts", "matches", "overflow"):
             assert o[k] == outs[0][k], k
@@ -522,7 +536,11 @@ def test_cli_spatial_matches_single_device(tmp_path, capsys, test_image):
 # SlamSystem on a mesh
 # --------------------------------------------------------------------------
 
-def _slam_runs(frames, feats, intr, mesh_kw):
+def _slam_runs(frames, feats, jfeats, intr, mesh_kw, jmesh):
+    """The port's single-device and mesh runs and JAX's mesh run of the
+    same route; the port replays JAX's draws."""
+    from akaze_tpu.slam import odometry as jodo
+    from akaze_tpu.slam import system as jsys
     from akaze_tpu_torch.slam import odometry as todo
     from akaze_tpu_torch.slam import system as tsys
     from test_torch_slam import AKAZE_CFG, SLAM_CFG, VO_CFG, Replay
@@ -537,48 +555,82 @@ def _slam_runs(frames, feats, intr, mesh_kw):
         for f in frames:
             s.process(f)
         runs.append(s)
-    return runs
+    js = jsys.SlamSystem(jodo.Intrinsics(**intr), JConfig(**AKAZE_CFG),
+                         jsys.SlamConfig(**SLAM_CFG), mesh=jmesh, **VO_CFG)
+    if jfeats is not None:
+        js.vo.akaze.detect_and_compute = lambda k: jfeats[k]
+    for f in frames:
+        js.process(f)
+    return runs + [js]
+
+
+def _same_keyframes_and_edges(a, b):
+    assert [k.index for k in a.vo.keyframes] == [k.index
+                                                 for k in b.vo.keyframes]
+    assert [e[:2] for e in a.edges] == [e[:2] for e in b.edges]
 
 
 def test_slam_system_mesh_on_a_3d_scene_matches_single_device():
     """Sharded PGO and landmark-sharded local BA inside the SLAM loop, on
     features of a 3-D scene fed in place of detection, with JAX's draws
     replayed: keyframes and edges equal to the single-device run's (the
-    run tests/test_torch_slam.py holds to JAX's), trajectories within 1e-2
-    of the map's extent."""
+    run tests/test_torch_slam.py holds to JAX's) and to JAX's
+    ``SlamSystem(mesh)`` on 4 devices, trajectories within 1e-2 of the
+    map's extent of both."""
+    from akaze_tpu.pipeline import Features as JFeatures
     from akaze_tpu_torch.io.dataset import projected_sequence
     from akaze_tpu_torch.pipeline import features_from_numpy
     frames, _ = projected_sequence(np.random.default_rng(5))
     intr = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
     feats = [features_from_numpy(f, "cpu") for f in frames]
+    jfeats = [JFeatures(**{k: jnp.asarray(v) for k, v in f.items()})
+              for f in frames]
     mesh = tpar.make_mesh(4, devices=["cpu"] * 4)
-    single, sharded = _slam_runs(range(len(frames)), feats, intr,
-                                 {"mesh": mesh})
+    single, sharded, js = _slam_runs(range(len(frames)), feats, jfeats,
+                                     intr, {"mesh": mesh},
+                                     jpar.make_mesh(4))
     assert [e for e in single.edges if e[1] != e[0] + 1], "no loop edge"
-    assert ([k.index for k in sharded.vo.keyframes]
-            == [k.index for k in single.vo.keyframes])
-    assert [e[:2] for e in sharded.edges] == [e[:2] for e in single.edges]
-    want = single.keyframe_trajectory()
-    np.testing.assert_allclose(sharded.keyframe_trajectory(), want,
-                               atol=1e-2 * float(np.abs(want).max()))
+    for ref in (single, js):
+        _same_keyframes_and_edges(sharded, ref)
+        want = ref.keyframe_trajectory()
+        np.testing.assert_allclose(sharded.keyframe_trajectory(), want,
+                                   atol=1e-2 * float(np.abs(want).max()))
 
 
 def test_slam_system_mesh_on_images_matches_single_device():
     """The image route with detection row-sharded over two shards: the
     spatial tier's features equal the single-device ones, so keyframes,
-    edges and every keyframe's features agree."""
+    edges and every keyframe's features agree; against JAX's
+    ``SlamSystem(mesh)`` on 2 devices keyframes and edges are equal and
+    each keyframe's features agree within the pair path's tolerances
+    (counts exact, x/y 1e-4 px), descriptors within 1 flipped bit
+    (ROADMAP P9-6: bf16 sampling, single-device as well).  The scene is
+    planar, so trajectories are compared with the port's single-device
+    run only (tests/test_torch_slam.py says why)."""
     from test_torch_slam import IMG_INTR, image_sequence
     frames, _ = image_sequence()
     mesh = tpar.make_mesh(2, devices=["cpu"] * 2)
-    single, sharded = _slam_runs(frames, None, IMG_INTR, {"mesh": mesh})
+    single, sharded, js = _slam_runs(frames, None, None, IMG_INTR,
+                                     {"mesh": mesh}, jpar.make_mesh(2))
     assert sharded.vo.akaze.mesh is mesh
     assert sharded.vo.akaze.spatial_fallbacks == 0
-    assert [e[:2] for e in sharded.edges] == [e[:2] for e in single.edges]
-    assert len(sharded.vo.keyframes) == len(single.vo.keyframes) > 3
-    for ka, kb in zip(sharded.vo.keyframes, single.vo.keyframes):
-        assert ka.index == kb.index
+    for ref in (single, js):
+        _same_keyframes_and_edges(sharded, ref)
+    assert len(sharded.vo.keyframes) > 3
+    for ka, kb, kj in zip(sharded.vo.keyframes, single.vo.keyframes,
+                          js.vo.keyframes):
         for f in ("x", "y", "words", "valid"):
             assert torch.equal(getattr(ka.features, f),
                                getattr(kb.features, f)), f
+        n = int(kj.features.count)
+        assert int(ka.features.count) == n
+        for f in ("x", "y"):
+            np.testing.assert_allclose(
+                getattr(ka.features, f)[:n].numpy(),
+                np.asarray(getattr(kj.features, f))[:n], atol=1e-4)
+        flips = np.unpackbits((words_to_numpy(ka.features.words)[:n]
+                               ^ np.asarray(kj.features.words)[:n])
+                              .view(np.uint8), axis=1).sum(1)
+        assert flips.max() <= 1, flips.max()               # P9-6
     np.testing.assert_allclose(sharded.keyframe_trajectory(),
                                single.keyframe_trajectory(), atol=1e-2)

@@ -402,8 +402,9 @@ def test_cli_refuses_spatial_and_missing_files(cli_pair, tmp_path,
         cli.main(["--left", lp, "--right", rp, "--device", "cpu",
                   "--spatial", "3"])
     assert e.value.code == 2
-    assert "--spatial 3: octave 0 height 160 not divisible" in (
-        capsys.readouterr().err)
+    err = capsys.readouterr().err
+    assert "--spatial 3: spatial sharding unsupported for 160x" in err
+    assert "octave 0 height 160 not divisible" in err
     with pytest.raises(FileNotFoundError):
         cli.main(["--left", str(tmp_path / "absent.pgm"), "--right", rp,
                   "--device", "cpu"])

@@ -21,6 +21,12 @@ pairs, sharded PGO and BA, the multi-process runtime), reached through
 ``Akaze(mesh=...)``, ``slam.SlamSystem(mesh=...)`` and the CLI's
 ``--spatial N``.
 
+``programs`` is the counterpart of ``jax.jit``: ``Akaze``'s calls, the
+SLAM path's loop-candidate scoring, PGO and local BA run as compiled
+programs, one captured CUDA graph per static signature on the card
+(``programs.eager()`` runs them eagerly, ``programs.clear()`` drops the
+graphs; the CPU never captures).
+
 This package imports torch and numpy, never jax and never ``akaze_tpu``.
 """
 
@@ -30,11 +36,12 @@ from .pipeline import (Akaze, Features, detect_and_compute,
                        detect_and_compute_batch, detect_and_compute_pair,
                        features_from_numpy, features_to_numpy)
 from .plan import PipelinePlan, build_plan
+from . import programs
 
 __all__ = [
     "AkazeConfig", "Diffusivity", "config_from", "Akaze", "Features",
     "detect_and_compute", "detect_and_compute_batch",
     "detect_and_compute_pair", "features_from_numpy", "features_to_numpy",
     "PipelinePlan",
-    "build_plan", "Matches", "match", "hamming_distance_matrix",
+    "build_plan", "Matches", "match", "hamming_distance_matrix", "programs",
 ]

@@ -24,12 +24,14 @@ raises when fewer are visible, as the JAX CLI does; a device with an index
 repository).  A missing file raises.
 
 Timing (the reference averages 100 repeats, main.cpp:199-216): after a first
-pair iteration and match, whose wall time (``compile_s``) includes building
-the kernels when the checkout has no library yet, ``detect_pair_ms`` is the
-median over ``--iters`` calls of ``detect_and_compute_pair`` and
-``match_ms`` the median over 10 x ``--iters`` calls of ``match`` with
-``config.max_dist``, each between CUDA events on the card (host launch
-work included), with ``time.perf_counter`` on the CPU.
+pair iteration and match, whose wall time (``compile_s``) covers the
+programs' warm-up and capture on the card (one CUDA graph per static
+signature, ``programs.py``; as the JAX CLI's covers compilation) and the
+kernels' build when the checkout has no library yet, ``detect_pair_ms`` is
+the median over ``--iters`` calls of ``detect_and_compute_pair`` and
+``match_ms`` the median over 10 x ``--iters`` calls of ``Akaze.match``
+with ``config.max_dist``, each between CUDA events on the card (host
+launch work included), with ``time.perf_counter`` on the CPU.
 """
 
 from __future__ import annotations
@@ -96,8 +98,9 @@ def main(argv=None):
     ap.add_argument("--no-draw", action="store_true")
     ap.add_argument("--json", action="store_true",
                     help="print one JSON line instead of text; compile_s "
-                         "is the first pair iteration's wall time, kernel "
-                         "build included")
+                         "is the first pair iteration's wall time: the "
+                         "programs' warm-up and CUDA-graph capture, and the "
+                         "kernel build when there is none yet")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card, which raises "
                          "without one; 'cpu' runs the plain versions)")
@@ -112,7 +115,6 @@ def main(argv=None):
     import torch
     from . import Akaze, AkazeConfig
     from .io import load_gray
-    from .match import match
 
     left = load_gray(args.left)
     right = load_gray(args.right)
@@ -149,9 +151,8 @@ def main(argv=None):
     iters = max(args.iters, 1)
     detect_ms = _median_ms(lambda: det.detect_and_compute_pair(la, ra),
                            iters, dev)
-    match_ms = _median_ms(
-        lambda: match(fa.words, fa.valid, fb.words, fb.valid, fb.x, fb.y,
-                      det.config.max_dist), 10 * iters, dev)
+    match_ms = _median_ms(lambda: det.match(fa, fb, det.config.max_dist),
+                          10 * iters, dev)
 
     na, nb = int(fa.count), int(fb.count)
     acc = m.index[:na].cpu().numpy() >= 0
@@ -174,8 +175,8 @@ def main(argv=None):
         print(f"Matched features:   {n_match}")
         print(f"Detect+describe (both images, median of {iters}): "
               f"{detect_ms:.2f} ms")
-        print(f"Match: {match_ms:.2f} ms   (first pair, build included: "
-              f"{compile_s:.1f} s)")
+        print(f"Match: {match_ms:.2f} ms   (first pair, capture and build "
+              f"included: {compile_s:.1f} s)")
         if overflow:
             print("warning: keypoint capacity overflow: some NMS "
                   "survivors were dropped (raise max_pts)")

@@ -276,4 +276,6 @@ def describe(iparams: torch.Tensor, fparams: torch.Tensor, planes,
     raise ValueError(f"no describe kernel for device {dev}")
 
 
+# kernel launches; a replayed program adds the launches its capture
+# recorded (programs.py), so the count covers graphs too
 describe.launches = 0

@@ -134,4 +134,6 @@ def hamming_top2(words1: torch.Tensor, words2: torch.Tensor,
     raise ValueError(f"no hamming kernel for device {dev}")
 
 
+# kernel launches; a replayed program adds the launches its capture
+# recorded (programs.py), so the count covers graphs too
 hamming_top2.launches = 0

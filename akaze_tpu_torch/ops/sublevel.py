@@ -530,6 +530,8 @@ def octave(src: torch.Tensor, ikc: torch.Tensor, oct_plan,
                       diffusivity, bool(fixed))
 
 
+# kernel launches; a replayed program adds the launches its capture
+# recorded (programs.py), so the count covers graphs too
 sublevel.launches = 0
 octave.launches = 0
 

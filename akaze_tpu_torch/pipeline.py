@@ -3,8 +3,10 @@
 Port of ``akaze_tpu/pipeline.py``.  One code path serves one image and a
 pair: the scale space of all B images runs with the same K1 launches
 (13 per pair at 960x1280), detection runs per image, and one K2 launch
-describes every image's keypoints.  ``Akaze.match`` runs K4.  Entry
-points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
+describes every image's keypoints.  ``Akaze.match`` runs K4.  ``Akaze`` runs
+each of its calls as a compiled program (``programs.py``, the JAX
+package's ``_jit_*`` wrappers): one CUDA graph per static signature,
+shared between instances.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
 raise without a card), a tensor stays where it lies, and ``device="cpu"``
 runs every kernel's plain version instead.
 
@@ -27,6 +29,7 @@ from .descriptor import (WSIZE, orient_describe_multi, plane_dtype,
 from .detect import build_padded_pyramid, detect_keypoints
 from .match import Matches, match
 from .plan import PipelinePlan, build_plan
+from .programs import jit
 from .scale_space import OctaveData, build_scale_space
 
 
@@ -146,10 +149,31 @@ def detect_and_compute_pair(image_a, image_b, plan: PipelinePlan, *,
     return fa, fb
 
 
+# The programs of ``Akaze``, as the JAX package's module-level jit
+# entries: plans are frozen (hashable) dataclasses, so every Akaze instance
+# with the same (shape, config) shares one captured graph.
+@jit(static_argnums=(6,))
+def _jit_match(w1, v1, w2, v2, x2, y2, max_dist):
+    return match(w1, v1, w2, v2, x2, y2, max_dist)
+
+
+@jit(static_argnames=("plan", "fixed", "describe"))
+def _jit_detect_and_compute(image, plan, fixed, describe):
+    return detect_and_compute(image, plan, fixed=fixed, describe=describe)
+
+
+@jit(static_argnames=("plan", "fixed"))
+def _jit_detect_and_compute_pair(image_a, image_b, plan, fixed):
+    return detect_and_compute_pair(image_a, image_b, plan, fixed=fixed)
+
+
 class Akaze:
-    """Plans cached per image shape; every tensor on ``device``: the card
-    unless the caller asks for the CPU (``device="cpu"``, where every
-    kernel's plain version runs).  Without a card, the default raises.
+    """Plans cached per image shape, and a compiled program per call
+    signature (``programs.py``: one CUDA graph per static signature on the
+    card; the CPU runs the functions as they are); every tensor on
+    ``device``: the card unless the caller asks for the CPU
+    (``device="cpu"``, where every kernel's plain version runs).  Without
+    a card, the default raises.
 
     ``fixed=True``: the 16.16 fixed-point path; images are raw 0..255
     (as the reference's demo feeds its fast path, main.cpp:257-258).
@@ -227,8 +251,7 @@ class Akaze:
                                               describe=describe)
         if self.mesh is not None:
             self.spatial_fallbacks += 1
-        return detect_and_compute(x, plan, fixed=self.fixed,
-                                  describe=describe)
+        return _jit_detect_and_compute(x, plan, self.fixed, describe)
 
     def detect_and_compute_pair(self, image_a, image_b):
         """Both images of a pair in one batch.  Returns (fa, fb).  With a
@@ -236,13 +259,13 @@ class Akaze:
         is why the mesh exists; batching the pair onto one device would
         defeat it)."""
         a = _as_images(image_a, self.device, self.fixed)
+        b = _as_images(image_b, self.device, self.fixed)
+        if a.shape != b.shape:
+            raise ValueError("pair batching needs equal shapes")
         if self.mesh is not None:
-            b = _as_images(image_b, self.device, self.fixed)
-            if a.shape != b.shape:
-                raise ValueError("pair batching needs equal shapes")
             return self.detect_and_compute(a), self.detect_and_compute(b)
-        return detect_and_compute_pair(a, image_b, self.plan_for(*a.shape),
-                                       fixed=self.fixed)
+        return _jit_detect_and_compute_pair(a, b, self.plan_for(*a.shape),
+                                            self.fixed)
 
     @staticmethod
     def match(f1: Features, f2: Features, max_dist: int = 96) -> Matches:
@@ -251,8 +274,8 @@ class Akaze:
         akazed.cu:11).  As in the JAX package, ``config.max_dist`` is not
         read here: a caller that wants it passes it (as the JAX package's
         ``cli.py:119`` does)."""
-        return match(f1.words, f1.valid, f2.words, f2.valid, f2.x, f2.y,
-                     max_dist)
+        return _jit_match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
+                          f2.y, max_dist)
 
 
 def features_from_numpy(f, device, max_pts: Optional[int] = None

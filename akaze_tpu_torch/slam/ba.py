@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.se3 import hat, se3_compose, se3_exp
+from ..programs import jit
 from .linalg import cg, one_hot, segment_sum
 
 
@@ -160,10 +161,13 @@ def schur_solve_shards(r, Jc, Jp, probs, hc, hp, lam, cg_iters: int,
     return dc, dp
 
 
+@jit(static_argnames=("n_cams", "n_pts", "iters", "cg_iters"))
 def bundle_adjust(R, t, X, prob: BAProblem, n_cams: int, n_pts: int,
                   iters: int = 8, cg_iters: int = 30, lam0: float = 1e-3,
                   fixed_cam_mask=None):
-    """Levenberg-Marquardt sparse BA.
+    """Levenberg-Marquardt sparse BA, a compiled program
+    (``programs.py``): one CUDA graph per (static arguments, tensor
+    shapes) on the card; ``lam0`` is traced, an input of the graph.
 
     Args:
       R, t: camera poses [C, 3, 3], [C, 3] (world -> camera).
@@ -172,20 +176,20 @@ def bundle_adjust(R, t, X, prob: BAProblem, n_cams: int, n_pts: int,
       n_cams, n_pts: sizes (== C, P).
       iters: LM iterations.
       cg_iters: CG iterations per Schur solve.
-      lam0: initial LM damping.
+      lam0: initial LM damping (a number, or a 0-d tensor as a program
+        passes it).
       fixed_cam_mask: [C] bool gauge fixing (default: camera 0 fixed).
 
     Returns (R, t, X, final_cost), the cost a device scalar.
     """
-    if fixed_cam_mask is None:
-        fixed_cam_mask = torch.zeros(n_cams, dtype=torch.bool,
-                                     device=R.device)
-        fixed_cam_mask[0] = True
+    if fixed_cam_mask is None:      # (an item assignment would copy)
+        fixed_cam_mask = torch.arange(n_cams, device=R.device) == 0
     free = (~fixed_cam_mask).to(R.dtype)[:, None]
     free_obs = free[prob.cam.long()][:, None, :]          # [M, 1, 1]
     hc = one_hot(prob.cam, n_cams, R.dtype)
     hp = one_hot(prob.pt, n_pts, R.dtype)
-    lam = torch.full((), lam0, dtype=torch.float32, device=R.device)
+    lam = (lam0.to(torch.float32) if isinstance(lam0, torch.Tensor)
+           else torch.full((), lam0, dtype=torch.float32, device=R.device))
     for _ in range(iters):
         r, Jc, Jp = _obs_jacobians(R, t, X, prob)
         dc, dp = _schur_solve(r, Jc * free_obs, Jp, prob, hc, hp, lam,

@@ -26,6 +26,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..geometry.se3 import se3_compose, se3_exp, se3_inverse, se3_log
+from ..programs import jit
 from .linalg import cg, one_hot, segment_sum
 
 
@@ -130,11 +131,14 @@ def _edge_blocks(Ri, ti, Rj, tj, R_ij, t_ij, weight):
     return J[..., :6], J[..., 6:]
 
 
+@jit(static_argnames=("iters", "cg_iters", "robust", "robust_delta"))
 def optimize_pose_graph(R, t, graph: PoseGraph, iters: int = 10,
                         cg_iters: int = 50, damping: float = 1e-6,
                         fixed_mask=None, robust: str = "none",
                         robust_delta: float = 2.0):
-    """Gauss-Newton PGO.
+    """Gauss-Newton PGO, a compiled program (``programs.py``): one CUDA
+    graph per (static arguments, tensor shapes) on the card; ``damping``
+    is traced, an input of the graph.
 
     Args:
       R, t: initial poses [N, 3, 3], [N, 3].
@@ -149,10 +153,8 @@ def optimize_pose_graph(R, t, graph: PoseGraph, iters: int = 10,
     Returns (R, t, final_cost), the cost a device scalar.  A step is kept
     only where it lowers the (IRLS-weighted) cost, decided on the device.
     """
-    if fixed_mask is None:
-        fixed_mask = torch.zeros(R.shape[0], dtype=torch.bool,
-                                 device=R.device)
-        fixed_mask[0] = True
+    if fixed_mask is None:          # (an item assignment would copy)
+        fixed_mask = torch.arange(R.shape[0], device=R.device) == 0
     return gauss_newton(R, t, [graph], fixed_mask, iters, cg_iters, damping,
                         robust, robust_delta, reduce=_only, gather=_only)
 

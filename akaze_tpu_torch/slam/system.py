@@ -34,6 +34,7 @@ from ..descriptor import words_to_numpy
 from ..geometry import se3_compose, se3_inverse
 from ..match import match
 from ..pipeline import Features
+from ..programs import jit
 from .ba import BAProblem, bundle_adjust
 from .checkpoint import load_checkpoint, save_checkpoint
 from .odometry import (Intrinsics, Keyframe, VisualOdometry, _two_view,
@@ -61,13 +62,31 @@ class SlamConfig:
     local_ba_points: int = 512     # landmark capacity per local BA
 
 
+@jit(static_argnames=("max_dist",))
+def _batched_match_counts(qw, qv, words, valid, max_dist: int = 96):
+    """Accepted-match counts of one query keyframe against a stack of
+    stored keyframes: ONE program (a K4 launch per keyframe, captured
+    together), so loop-closure candidate scoring is a single replay
+    however many keyframes are screened.
+
+    qw [Q, 16] int32 / qv [Q] bool; words [C, T, 16] / valid [C, T].
+    Returns counts [C] int32.
+    """
+    zeros = torch.zeros(words.shape[1], dtype=torch.float32,
+                        device=words.device)
+    counts = [(match(qw, qv, words[c], valid[c], zeros, zeros,
+                     max_dist).index >= 0).sum()
+              for c in range(words.shape[0])]
+    return torch.stack(counts).to(torch.int32)
+
+
 class KeyframeIndex:
     """Host-side loop-closure index over keyframe descriptor sets.
 
     A 512-lane bit-frequency signature per keyframe gives a cosine
     prefilter on the host; the top candidates are then matched on the
-    device, one K4 launch per candidate, with the accepted counts fetched
-    once for all of them.
+    device in one program (``_batched_match_counts``), with the accepted
+    counts fetched once for all of them.
     """
 
     def __init__(self):
@@ -112,14 +131,11 @@ class KeyframeIndex:
         if len(cand) == 0:
             return np.empty(0, np.int64)
         q = self._feats[query_idx]
-        counts = []
-        for c in cand:
-            f = self._feats[int(c)]
-            zeros = torch.zeros_like(f.x)
-            m = match(q.words, q.valid, f.words, f.valid, zeros, zeros,
-                      max_dist)
-            counts.append((m.index >= 0).sum())
-        return to_numpy(torch.stack(counts).to(torch.int32))
+        return to_numpy(_batched_match_counts(
+            q.words, q.valid,
+            torch.stack([self._feats[int(c)].words for c in cand]),
+            torch.stack([self._feats[int(c)].valid for c in cand]),
+            max_dist))
 
 
 def loop_edge_measurement(R_new, t_new, R_old, t_old, R_rel, t_dir,

@@ -97,6 +97,31 @@ any disagreement:
      the single-device run's); the CLI with ``--spatial 4 --device
      cuda:0`` in this process; ``dryrun_multichip(4)``.
 
+  12. the compiled programs (``akaze_tpu_torch/programs.py``: one CUDA
+     graph per static signature, the JAX package's ``jax.jit`` sites), in
+     ``[program ...]`` phases beside the paths above: ``torch.profiler``
+     sees a replay's kernels with the eager launch counts (the kernel rows
+     profile replays; the run fails otherwise); per pair flavour the
+     pair and match programs held against the eager card path (each of 3
+     replays equal bit for bit, ``captures`` fixed, ``replays`` one more
+     per call, the launch counters moved as the eager call moves them, no
+     plain version run), outputs of a call unchanged by the next call on
+     other inputs, no host sync in a replayed iteration, the pair
+     iteration eager and captured in turns (medians of 20 between CUDA
+     events) and each one's device busy time against its wall (idle
+     share); the single-image program at 960x1280 (``describe=True`` and
+     ``False``) and 480x640, the match program at 10000 x 10000; the
+     loop-candidate program on every candidate stack of the SLAM route,
+     PGO and local BA at the SLAM cell's buckets at two values of their
+     traced damping, each without a sync and timed per call in turns; the
+     SLAM route eagerly and with programs: keyframes and edges equal bit
+     for bit, no new capture on a repeated route, frame, PGO and BA times
+     side by side; each key's warm-up and capture seconds and the MiB its
+     capture added to the device's shared graph pool, and that pool's
+     size after the route.
+     Every phase above that calls ``Akaze``, ``SlamSystem`` or the solvers
+     drives the programs.
+
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
 synthetic 960x1280 texture A and its crop B shifted by (dy, dx) = (7, 13).
@@ -1720,15 +1745,19 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
                        else "describe_kernel<float, false"
                        if name == "float f32"
                        else "describe_kernel<__nv_bfloat16")
+                # a route may run no octave on the resident kernel
+                # (1920x2560: octave 3 is tiled, or gathered onto it)
+                res = launches["resident"] > 0
                 with no_plain_versions():
                     prof = profiled(torch, lambda: det.match(
                         *det.detect_and_compute_pair(a, b)),
-                        ("tiled_kernel" + needle, "octave_kernel" + needle,
-                         k2n, "hamming_kernel"))
+                        ("tiled_kernel" + needle, k2n, "hamming_kernel")
+                        + (("octave_kernel" + needle,) if res else ()))
                 out["rows"][(n, name)] = dict(
                     launches=launches, k1=k1c, k2=k2c,
                     tiled=kernel_time(prof, "tiled_kernel" + needle),
-                    resident=kernel_time(prof, "octave_kernel" + needle),
+                    resident=(kernel_time(prof, "octave_kernel" + needle)
+                              if res else None),
                     describe=kernel_time(prof, k2n))
     return out
 
@@ -2027,7 +2056,37 @@ def phase_mesh_slam(torch, dev, card, frames, single):
           f"{diff:.3g} of the extent (P7-2: not gated); median frame "
           f"{np.median(ms):.3f} ms, route {sum(ms) / 1e3:.3f} s; card: "
           f"{card}")
-    return dict(launches=launches, frame_ms=float(np.median(ms)))
+    # the kernels line's rows: K1 and K2 against their plain versions on
+    # one tracked frame's shard calls of a new system, device time per
+    # frame over the frames after it
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.parallel import spatial
+    s = SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
+                   SlamConfig(local_ba_every=2), mesh=mesh)
+    s.process(frames[0])
+    with no_plain_versions(), recording(spatial, "sublevel") as tiled, \
+            recording(spatial, "octave") as resident, \
+            recording(k2mod, "_launch") as k2calls:
+        s.process(frames[1])
+        torch.cuda.synchronize()
+    k1c = check_k1_calls(torch, tiled, resident, False, "mesh slam")
+    k2c = check_k2_calls(torch, k2calls, "mesh slam")
+    rest = iter(frames[2:])
+    with no_plain_versions():
+        prof = profiled(torch, lambda: s.process(next(rest)),
+                        ("tiled_kernel<float>", "octave_kernel<float>",
+                         "describe_kernel<__nv_bfloat16"))
+    rows = dict(launches=launches, k1=k1c, k2=k2c,
+                tiled=kernel_time(prof, "tiled_kernel<float>"),
+                resident=kernel_time(prof, "octave_kernel<float>"),
+                describe=kernel_time(prof, "describe_kernel<__nv_bfloat16"))
+    print(f"[mesh slam] K1 on {len(tiled)} blocks and {len(resident)} "
+          f"gathered octaves and K2 on {len(k2calls)} shard stacks of one "
+          f"frame = plain; device per frame: K1 tiled "
+          f"{rows['tiled'][0]:.4f} ms in {rows['tiled'][1]:.0f}, resident "
+          f"{rows['resident'][0]:.4f} in {rows['resident'][1]:.0f}, K2 "
+          f"{rows['describe'][0]:.4f} in {rows['describe'][1]:.0f}")
+    return dict(launches=launches, frame_ms=float(np.median(ms)), rows=rows)
 
 
 def phase_mesh_cli(torch, dev, card, raw_pair, expected):
@@ -2079,20 +2138,27 @@ def phase_mesh_dryrun(torch, dev):
     return out
 
 
-def mesh_rows(spatial, match, dp, k1_rep, k2_rep, k4_rep):
-    """The sharded paths' rows of the kernels line."""
+def mesh_rows(spatials, match, dp, slam, k1_rep, k2_rep, k4_rep):
+    """The sharded paths' rows of the kernels line; ``spatials``: (name
+    suffix, ``phase_mesh_spatial`` result) per image size."""
     srcs = {"k1": "akaze_tpu_torch/csrc/sublevel.cu",
             "k2": "akaze_tpu_torch/csrc/describe.cu",
             "k4": "akaze_tpu_torch/csrc/hamming.cu"}
     rows = []
-    for (n, name), r in sorted(spatial["rows"].items()):
-        sfx = f"_spatial{n}" + ("_fixed" if "fixed" in name else "")
+    spatial_rows = sorted((n, name, size, r) for size, sp in spatials
+                          for (n, name), r in sp["rows"].items())
+    spatial_rows += [(None, "float", "_mesh_slam", slam)]
+    for n, name, size, r in spatial_rows:
+        sfx = (f"_spatial{n}" if n else "") + size + (
+            "_fixed" if "fixed" in name else "")
         k1, k2 = r["k1"], r["k2"]
         for kind, key, err, plain, nb, no in (
                 ("tiled_kernel", "tiled", k1["max_abs_err"], k1["plain_ms"],
                  k1["bytes"], k1["ops"]),
                 ("octave_kernel", "resident", k1["res_abs_err"],
                  k1["res_plain_ms"], k1["res_bytes"], k1["res_ops"])):
+            if r[key] is None:
+                continue
             bms, by = bound(nb, no)
             rows.append(dict(name=kind + sfx, source=srcs["k1"],
                              replaces=k1_rep, launches=r["launches"][key],
@@ -2132,6 +2198,401 @@ def mesh_rows(spatial, match, dp, k1_rep, k2_rep, k4_rep):
                      plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
                      bound_by=k4["bound_by"]))
     return rows
+
+
+# --------------------------------------------------------------------------
+# the compiled programs (akaze_tpu_torch/programs.py): one CUDA graph per
+# static signature, held against the eager card path
+# --------------------------------------------------------------------------
+
+PRINTED_KEYS = set()    # (program, key) lines key_line printed
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def equal_outputs(torch, got, want, tag):
+    """Fail unless two outputs of one program are equal bit for bit."""
+    from torch.utils import _pytree as pytree
+    g, gs = pytree.tree_flatten(got)
+    w, ws = pytree.tree_flatten(want)
+    check(gs == ws, f"[{tag}] output structures differ")
+    for i, (x, y) in enumerate(zip(g, w)):
+        same = (x.dtype == y.dtype and x.shape == y.shape
+                and bool(torch.equal(x, y)))
+        check(same, f"[{tag}] output {i} differs from the eager run's")
+
+
+def hold_program(torch, program, fn, tag, calls=3):
+    """``fn`` (one call of ``program`` on the card) against the same call
+    run eagerly (``programs.eager()``): after a first call (a capture, or
+    a replay of a key captured before), each of ``calls`` replays equals
+    the eager output bit for bit, leaves ``captures`` as it was, adds one
+    to ``replays`` and moves the launch counters as the eager call moved
+    them; no kernel's plain version runs.  Returns (eager output, its
+    launches)."""
+    from akaze_tpu_torch import programs
+    with no_plain_versions():
+        with programs.eager():
+            before = launch_counts()
+            want = fn()
+            torch.cuda.synchronize()
+            eager_n = {k: v - before[k] for k, v in launch_counts().items()}
+        fn()
+        torch.cuda.synchronize()
+        captures = program.captures
+        for _ in range(calls):
+            replays = program.replays
+            before = launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            n = {k: v - before[k] for k, v in launch_counts().items()}
+            check(program.captures == captures
+                  and program.replays == replays + 1,
+                  f"[{tag}] captures {program.captures} (was {captures}), "
+                  f"replays {program.replays} (was {replays})")
+            check(n == eager_n, f"[{tag}] a replay counted launches {n}, "
+                  f"the eager call {eager_n}")
+            equal_outputs(torch, got, want, tag)
+    return want, eager_n
+
+
+def no_sync(torch, fn, tag):
+    """``fn`` (warm) under ``set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"[{tag}] a replay synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def fresh_outputs(torch, first, second, tag):
+    """``first()`` then ``second()``, one program on other inputs: the
+    first call's outputs stay as they were."""
+    from torch.utils import _pytree as pytree
+    out = pytree.tree_leaves(first())
+    keep = [x.clone() for x in out]
+    other = pytree.tree_leaves(second())
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(out, keep)),
+          f"[{tag}] a later call overwrote an earlier call's outputs")
+    check(not all(torch.equal(x, y) for x, y in zip(out, other)),
+          f"[{tag}] other inputs gave the same outputs")
+
+
+def in_turns(torch, fn, reps):
+    """Times of ``fn`` between CUDA events, eager (``programs.eager()``)
+    and captured in turns: (eager times, captured times)."""
+    from akaze_tpu_torch import programs
+    eager, captured = [], []
+    for _ in range(reps):
+        with programs.eager():
+            eager += cuda_times(torch, fn, reps=1, warmup=0)
+        captured += cuda_times(torch, fn, reps=1, warmup=0)
+    return eager, captured
+
+
+def busy(torch, fn, eager: bool):
+    """(device ms, device events) per call of ``fn``: the profiler's
+    device events summed (one stream: they never overlap)."""
+    from akaze_tpu_torch import programs
+    with programs.eager() if eager else contextlib.nullcontext():
+        prof = device_kernels(torch, fn)
+    return sum(v[0] for v in prof.values()), sum(v[1] for v in prof.values())
+
+
+def key_line(program, tag):
+    """Capture seconds and the MiB added to the shared graph pool by each
+    key of ``program`` not printed before."""
+    from akaze_tpu_torch import programs
+    rows = [s for s in programs.stats() if s["program"] == program.name
+            and (s["program"], s["key"]) not in PRINTED_KEYS]
+    for s in rows:
+        PRINTED_KEYS.add((s["program"], s["key"]))
+        print(f"[{tag}] key {s['key'][:90]}: warm-up {s['warmup_s']:.3f} s, "
+              f"capture {s['capture_s']:.3f} s, pool +"
+              f"{s['pool_bytes'] / 2**20:.1f} MiB, {s['replays']} replays")
+    return rows
+
+
+def phase_program_profiler(torch, det, a, b):
+    """``torch.profiler`` sees a replayed graph's kernels under their
+    names, with the eager iteration's launch counts (the kernel rows and
+    the captured busy time profile replays): fails otherwise."""
+    from akaze_tpu_torch import programs
+    at = torch.as_tensor(a, device=det.device)
+    bt = torch.as_tensor(b, device=det.device)
+
+    def pair_iteration():
+        return det.match(*det.detect_and_compute_pair(at, bt))
+
+    needles = ("tiled_kernel", "octave_kernel", "describe_kernel",
+               "hamming_kernel")
+    def launches(prof):
+        return {n: sum(v[1] for k, v in prof.items() if n in k)
+                for n in needles}
+
+    with programs.eager():
+        want = device_kernels(torch, pair_iteration)
+    for _ in range(3):      # the trace can drop events
+        got = device_kernels(torch, pair_iteration)
+        if launches(got) == launches(want) and all(launches(got).values()):
+            break
+    else:
+        fail(f"[program profiler] a replayed pair iteration's kernels "
+             f"{launches(got)} against the eager iteration's "
+             f"{launches(want)}: a kernel of the path is missing from the "
+             f"trace or counted otherwise")
+    print(f"[program profiler] a replayed pair iteration: "
+          f"{sum(v[1] for v in got.values()):.0f} device events, "
+          f"{sum(v[0] for v in got.values()):.3f} ms (eager "
+          f"{sum(v[1] for v in want.values()):.0f}, "
+          f"{sum(v[0] for v in want.values()):.3f} ms); the kernels appear "
+          f"under their names with the eager launch counts")
+
+
+def phase_program_pair(torch, det, a, b, tag):
+    """Programs 1 and 3 (the pair and the match) of one flavour at
+    960x1280: held against the eager card path, fresh outputs, times
+    eager and captured in turns, device busy against wall."""
+    from akaze_tpu_torch import pipeline
+    at = torch.as_tensor(a, device=det.device)
+    bt = torch.as_tensor(b, device=det.device)
+    (fa, fb), n = hold_program(
+        torch, pipeline._jit_detect_and_compute_pair,
+        lambda: det.detect_and_compute_pair(at, bt), f"{tag} pair")
+    check(n == MAIN_LAUNCHES | {"hamming": 0}, f"[{tag}] launches {n}")
+    hold_program(torch, pipeline._jit_match, lambda: det.match(fa, fb),
+                 f"{tag} match")
+    fresh_outputs(torch, lambda: det.detect_and_compute_pair(at, bt),
+                  lambda: det.detect_and_compute_pair(bt, at), tag)
+
+    def pair_iteration():
+        return det.match(*det.detect_and_compute_pair(at, bt))
+
+    no_sync(torch, pair_iteration, tag)
+    eager, captured = in_turns(torch, pair_iteration, REPS)
+    out = dict(eager_ms=float(np.median(eager)),
+               captured_ms=float(np.median(captured)))
+    for kind in ("eager", "captured"):
+        ms, events = busy(torch, pair_iteration, kind == "eager")
+        out[f"{kind}_busy_ms"] = ms
+        out[f"{kind}_events"] = events
+        out[f"{kind}_idle"] = 1.0 - ms / out[f"{kind}_ms"]
+    out["keys"] = (key_line(pipeline._jit_detect_and_compute_pair, tag)
+                   + key_line(pipeline._jit_match, tag))
+    print(f"[{tag}] captured = eager bit for bit (pair and match, 3 "
+          f"replays each; launches {n}); fresh outputs; no sync; pair "
+          f"iteration eager {spread(eager)}, captured {spread(captured)} "
+          f"(in turns); device eager {out['eager_busy_ms']:.3f} ms busy in "
+          f"{out['eager_events']:.0f} events, idle {out['eager_idle']:.3f}; "
+          f"captured {out['captured_busy_ms']:.3f} ms busy, idle "
+          f"{out['captured_idle']:.3f}")
+    return out
+
+
+def phase_program_single(torch, det, image, tag):
+    """Program 2 (one image): ``describe=True`` and ``False`` held against
+    the eager card path; no sync; times eager and captured in turns."""
+    from akaze_tpu_torch import pipeline
+    x = torch.as_tensor(image, device=det.device)
+    out = {}
+    for describe in (True, False):
+        t = f"{tag} describe={describe}"
+        f, n = hold_program(torch, pipeline._jit_detect_and_compute,
+                            lambda: det.detect_and_compute(x, describe), t)
+        check(n["tiled"] > 0 and n["describe"] == int(describe)
+              and n["hamming"] == 0, f"[{t}] launches {n}")
+        no_sync(torch, lambda: det.detect_and_compute(x, describe), t)
+        eager, captured = in_turns(
+            torch, lambda: det.detect_and_compute(x, describe), REPS // 2)
+        out[describe] = dict(eager_ms=float(np.median(eager)),
+                             captured_ms=float(np.median(captured)))
+        print(f"[{t}] {int(f.count)} keypoints; captured = eager bit for "
+              f"bit (launches {n}); no sync; eager {spread(eager)}, "
+              f"captured {spread(captured)} (in turns)")
+    out["keys"] = key_line(pipeline._jit_detect_and_compute, tag)
+    return out
+
+
+def phase_program_match_stress(torch, dev):
+    """Program 3 at 10000 x 10000 (K4's stress inputs)."""
+    from akaze_tpu_torch import pipeline
+    w1, w2, v1, v2, x2, y2 = k4_stress_inputs(torch, dev)
+
+    def call():
+        return pipeline._jit_match(w1, v1, w2, v2, x2, y2, 96)
+
+    m, n = hold_program(torch, pipeline._jit_match, call,
+                        "program match 10000x10000")
+    no_sync(torch, call, "program match 10000x10000")
+    eager, captured = in_turns(torch, call, REPS)
+    print(f"[program match 10000x10000] captured = eager bit for bit "
+          f"({int((m.index >= 0).sum())} accepted, launches {n}); no sync; "
+          f"eager {spread(eager)}, captured {spread(captured)}")
+    return dict(eager_ms=float(np.median(eager)),
+                captured_ms=float(np.median(captured)),
+                keys=key_line(pipeline._jit_match, "program match"))
+
+
+def phase_program_candidates(torch, system):
+    """Program 4 on the SLAM route's loop-candidate stacks: every
+    keyframe's candidates as ``SlamSystem`` screens them."""
+    from akaze_tpu_torch.slam.system import _batched_match_counts
+    cfg, index = system.cfg, system.index
+    stacks = 0
+    for q in range(len(index)):
+        cand = index.candidates(q, cfg.min_loop_gap, cfg.loop_candidates)
+        if not len(cand):
+            continue
+        f = index._feats[q]
+        words = torch.stack([index._feats[int(c)].words for c in cand])
+        valid = torch.stack([index._feats[int(c)].valid for c in cand])
+
+        def call():
+            return _batched_match_counts(f.words, f.valid, words, valid, 96)
+
+        counts, n = hold_program(torch, _batched_match_counts, call,
+                                 f"program candidates kf {q}", calls=1)
+        check(n["hamming"] == len(cand), f"[program candidates] {n}")
+        stacks += 1
+    check(stacks > 0, "[program candidates] the route screened no keyframe")
+    no_sync(torch, call, "program candidates")
+    eager, captured = in_turns(torch, call, REPS)
+    print(f"[program candidates] {stacks} candidate stacks of the route "
+          f"(last: {len(cand)} keyframes, counts {counts.tolist()}): "
+          f"captured = eager bit for bit; no sync; last stack eager "
+          f"{spread(eager)}, captured {spread(captured)}")
+    return dict(eager_ms=float(np.median(eager)),
+                captured_ms=float(np.median(captured)),
+                keys=key_line(_batched_match_counts, "program candidates"))
+
+
+def phase_program_solvers(torch, dev):
+    """Programs 5 and 6 (PGO, local BA) at the SLAM cell's buckets, as
+    ``SlamSystem`` calls them: held against the eager card path at two
+    values of the traced damping (``damping``, ``lam0``), no sync, times
+    per call eager and captured in turns."""
+    from akaze_tpu_torch.slam import SlamConfig
+    from akaze_tpu_torch.slam.ba import bundle_adjust
+    from akaze_tpu_torch.slam.posegraph import optimize_pose_graph
+    cfg = SlamConfig()
+    (R0, t0, g), (Rc, tc, X0, prob) = slam_cell_problems(torch, dev)
+    fixed = torch.arange(R0.shape[0], device=dev) == 0
+    kw = dict(iters=10, fixed_mask=fixed, robust=cfg.robust,
+              robust_delta=cfg.robust_delta)
+    out = {}
+    for damping in (1e-6, 1e-2):
+        hold_program(torch, optimize_pose_graph,
+                     lambda: optimize_pose_graph(R0, t0, g, damping=damping,
+                                                 **kw),
+                     f"program pgo damping={damping}", calls=2)
+    pgo = lambda: optimize_pose_graph(R0, t0, g, **kw)  # noqa: E731
+    no_sync(torch, pgo, "program pgo")
+    out["pgo"] = in_turns(torch, pgo, 5)
+    args = (Rc.to(dev), tc.to(dev), X0.to(dev),
+            type(prob)(*(f.to(dev) for f in prob)))
+    n = dict(n_cams=Rc.shape[0], n_pts=X0.shape[0], iters=6,
+             fixed_cam_mask=torch.arange(Rc.shape[0], device=dev) == 0)
+    for lam0 in (1e-3, 1e-1):
+        hold_program(torch, bundle_adjust,
+                     lambda: bundle_adjust(*args, lam0=lam0, **n),
+                     f"program ba lam0={lam0}", calls=2)
+    ba = lambda: bundle_adjust(*args, **n)  # noqa: E731
+    no_sync(torch, ba, "program ba")
+    out["ba"] = in_turns(torch, ba, 5)
+    for name, prog in (("pgo", optimize_pose_graph), ("ba", bundle_adjust)):
+        eager, captured = out[name]
+        out[name] = dict(eager_ms=float(np.median(eager)),
+                         captured_ms=float(np.median(captured)),
+                         keys=key_line(prog, f"program {name}"))
+        print(f"[program {name}] captured = eager bit for bit at two "
+              f"damping values; no sync; per call eager {spread(eager)}, "
+              f"captured {spread(captured)} (in turns)")
+    return out
+
+
+def timed_route(torch, dev, frames):
+    """The TUM route on a new system: (system, tracked frame ms, keyframe
+    frame ms, PGO ms per call, BA ms per call), between CUDA events."""
+    from collections import defaultdict
+    s = tum_system(dev)
+    log = instrument(s)
+    s.prof = defaultdict(float)
+    tracked, keyf = [], []
+    for k, f in enumerate(frames):
+        n_kf = len(s.vo.keyframes)
+        t = cuda_times(torch, lambda: s.process(f), reps=1, warmup=0)[0]
+        if k:
+            (keyf if len(s.vo.keyframes) > n_kf else tracked).append(t)
+    n_pgo = sum(n == "optimize" for n, _ in log)
+    n_ba = sum(n == "local_bundle_adjust" for n, _ in log)
+    return (s, tracked, keyf, s.prof["pgo"] / max(n_pgo, 1) * 1e3,
+            s.prof["local_ba"] / max(n_ba, 1) * 1e3)
+
+
+def same_map(a, b):
+    """Keyframes (frame indices, poses, words) and edges equal bit for
+    bit."""
+    return ([k.index for k in a.vo.keyframes]
+            == [k.index for k in b.vo.keyframes]
+            and all(np.array_equal(x.R, y.R) and np.array_equal(x.t, y.t)
+                    and bool((x.features.words == y.features.words).all())
+                    for x, y in zip(a.vo.keyframes, b.vo.keyframes))
+            and len(a.edges) == len(b.edges)
+            and all(x[:2] == y[:2] and np.array_equal(x[2], y[2])
+                    and np.array_equal(x[3], y[3]) and x[4] == y[4]
+                    for x, y in zip(a.edges, b.edges)))
+
+
+def phase_program_route(torch, dev, frames, first, card):
+    """The SLAM route eagerly (``programs.eager()``) and with programs
+    (every key captured by the first run, ``first``): keyframes and edges
+    equal bit for bit to the eager run's and to the first run's; no new
+    capture; frame, PGO and BA times side by side; the programs' keys and
+    the shared graph pool after the route."""
+    from akaze_tpu_torch import programs
+    with programs.eager():
+        eager = timed_route(torch, dev, frames)
+    captures = sum(p.captures for p in programs.programs())
+    captured = timed_route(torch, dev, frames)
+    new = sum(p.captures for p in programs.programs()) - captures
+    check(same_map(eager[0], captured[0]),
+          "[program route] the captured route differs from the eager one")
+    check(same_map(first, captured[0]),
+          "[program route] two captured routes differ")
+    check(new == 0, f"[program route] a repeated route captured {new} "
+          f"new keys")
+    stats = programs.stats()
+    pool = sum(s["pool_bytes"] for s in stats) / 2**20
+    per = {}
+    for s in stats:
+        name = s["program"].rsplit(".", 1)[1]
+        per[name] = per.get(name, 0) + 1
+    out = dict(eager=[float(np.median(eager[1])), float(np.median(eager[2])),
+                      eager[3], eager[4]],
+               captured=[float(np.median(captured[1])),
+                         float(np.median(captured[2])), captured[3],
+                         captured[4]],
+               keys=per, pool_mib=pool)
+    print(f"[program route] {len(frames)} frames: keyframes and edges equal "
+          f"bit for bit to the eager run's and the first run's; no new "
+          f"capture. median tracked frame eager {out['eager'][0]:.3f} / "
+          f"captured {out['captured'][0]:.3f} ms; keyframe frame "
+          f"{out['eager'][1]:.3f} / {out['captured'][1]:.3f} ms; PGO per "
+          f"call {out['eager'][2]:.3f} / {out['captured'][2]:.3f} ms; local "
+          f"BA per call {out['eager'][3]:.3f} / {out['captured'][3]:.3f} ms "
+          f"(host wall per section); card: {card}")
+    print(f"[programs] after the SLAM route: {len(stats)} captured keys "
+          f"{per}; the shared graph pool {pool:.1f} MiB; torch.cuda "
+          f"reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+    return out
 
 
 def k3_row_inputs(torch, dev, frame):
@@ -2180,12 +2641,16 @@ def main() -> int:
     k4 = phase_k4(torch, dev)
     launches, k4_main, fa_main, _, m_main = phase_main(torch, det, a, b,
                                                        shift)
+    phase_program_profiler(torch, det, a, b)
     phase_no_sync(torch, det, a, b)
     k1_b1 = phase_describe_false(torch, det, a, fa_main)
     phase_small_reference(torch, dev)
     prof = phase_profile(torch, det, a, b)
     pair_ms = phase_timing(torch, det, a, b)
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
+    prog = {"float": phase_program_pair(torch, det, a, b, "program float")}
+    phase_program_single(torch, det, a, "program single 960x1280")
+    phase_program_match_stress(torch, dev)
 
     # the float path on f32 planes (bf16_sampling=False)
     f32 = Akaze(AkazeConfig(max_pts=MAX_PTS, bf16_sampling=False),
@@ -2195,6 +2660,8 @@ def main() -> int:
                                   tag="main float f32")
     phase_no_sync(torch, f32, a, b, tag="no sync float f32")
     prof_f32 = phase_profile(torch, f32, a, b, tag="profile float f32")
+    prog["float f32"] = phase_program_pair(torch, f32, a, b,
+                                           "program float f32")
 
     # the 16.16 fixed-point path, both descriptor flavours
     exact = Akaze(AkazeConfig(max_pts=MAX_PTS, fixed_exact_sampling=True),
@@ -2220,6 +2687,10 @@ def main() -> int:
     ap_ms = phase_timing(torch, approx, a8, b8, tag="time fixed approximate")
     print(f"[time] card: {card}; fixed pair iteration {fx_ms:.3f} ms "
           f"(exact), {ap_ms:.3f} ms (approximate)")
+    prog["fixed exact"] = phase_program_pair(torch, exact, a8, b8,
+                                             "program fixed exact")
+    prog["fixed approximate"] = phase_program_pair(
+        torch, approx, a8, b8, "program fixed approximate")
 
     # the SLAM path: the TUM RGB-D configuration at 480x640
     t0 = time.perf_counter()
@@ -2244,6 +2715,10 @@ def main() -> int:
     k4_slam = k4_case(torch, "K4 slam", fa.words, fb.words, fa.valid,
                       fb.valid, fb.x, fb.y)
     phase_slam_card_cpu(torch, dev)
+    phase_program_single(torch, det1, frames[0], "program single 480x640")
+    phase_program_candidates(torch, slam["system"])
+    phase_program_solvers(torch, dev)
+    phase_program_route(torch, dev, frames, slam["system"], card)
     print(f"[slam] card: {card}; median frame {slam['tracked_ms']:.3f} ms "
           f"tracked, {slam['keyframe_ms']:.3f} ms with a new keyframe")
 
@@ -2265,13 +2740,15 @@ def main() -> int:
     sp = phase_mesh_spatial(torch, dev, card, {False: (a, b), True: (a8, b8)},
                             (2, 4), flavours, (H, W), shift,
                             rows_for={(4, "float"), (4, "fixed exact")})
-    phase_mesh_spatial(torch, dev, card, big_pairs(), (4, 8),
-                       {k: flavours[k] for k in ("float", "fixed exact")},
-                       (BIG_H, BIG_W), SHIFT)
+    big = phase_mesh_spatial(torch, dev, card, big_pairs(), (4, 8),
+                             {k: flavours[k]
+                              for k in ("float", "fixed exact")},
+                             (BIG_H, BIG_W), SHIFT,
+                             rows_for={(4, "float"), (8, "float")})
     mesh_match = phase_mesh_match(torch, dev, card)
     dp = phase_mesh_dp(torch, dev, card)
     phase_mesh_solvers(torch, dev, card)
-    phase_mesh_slam(torch, dev, card, frames, slam["system"])
+    mesh_slam = phase_mesh_slam(torch, dev, card, frames, slam["system"])
     phase_mesh_cli(torch, dev, card, (a8, b8), pgm_counts)
     phase_mesh_dryrun(torch, dev)
     print(f"[mesh] every sharded path passed in "
@@ -2331,7 +2808,8 @@ def main() -> int:
                      r["event_ms"], ms / max(per_frame, 1e-9)))
     # the sharded paths' rows: per pair (spatial, 4 shards), per call
     # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards)
-    mesh = mesh_rows(sp, mesh_match, dp, k1_rep, k2_rep, k4_rep)
+    mesh = mesh_rows([("", sp), (f"_{BIG_H}x{BIG_W}", big)], mesh_match, dp,
+                     mesh_slam["rows"], k1_rep, k2_rep, k4_rep)
     kernels = []
     for row in mesh:
         kernels.append(dict(row, route="cuda", library_ms=None))
@@ -2359,6 +2837,14 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), host "
               f"{r['host_us']:.1f} us per call/launch, event-bracketed "
               f"{event:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    from akaze_tpu_torch import programs
+    for p in programs.programs():
+        if p.captures:
+            print(f"[programs] {p.name}: {p.captures} captures, "
+                  f"{p.replays} replays")
+    for name, r in prog.items():
+        print(f"[programs] pair iteration {name}: eager "
+              f"{r['eager_ms']:.3f} ms, captured {r['captured_ms']:.3f} ms")
     print(f"[kernels] card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1486,3 +1486,195 @@ def test_cli_spatial_and_dryrun_on_card(cuda, tmp_path):
         assert recs[0][k] == recs[1][k], k
     res = dryrun_multichip(4, devices=[cuda] * 4)
     assert res["spatial_count"] > 0 and np.isfinite(res["ba_cost"])
+
+
+# --------------------------------------------------------------------------
+# compiled programs (akaze_tpu_torch/programs.py): captured = eager
+# --------------------------------------------------------------------------
+
+PROGRAM_FLAVOURS = {
+    "float": (dict(), False),
+    "float_f32": (dict(bf16_sampling=False), False),
+    "fixed_exact": (dict(fixed_exact_sampling=True), True),
+    "fixed_approx": (dict(), True),
+}
+
+
+def _counted(fn):
+    """``fn()``'s result and the kernels' launches it counted."""
+    before = _launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in _launch_counts().items()}
+
+
+def _assert_trees_equal(got, want):
+    from torch.utils import _pytree as pytree
+    g, gs = pytree.tree_flatten(got)
+    w, ws = pytree.tree_flatten(want)
+    assert gs == ws
+    for i, (a, b) in enumerate(zip(g, w)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a, b), (
+            i, int((a != b).sum()), a.flatten()[:8], b.flatten()[:8])
+
+
+def _replayed(program, fn):
+    """Run ``fn`` (one call of ``program``) eagerly, then, with every
+    graph dropped, as its first (capturing) and second (replaying) call; check the program's counts
+    and that the replay equals the eager run bit for bit and counts the
+    same launches.  Returns the eager and replayed results."""
+    from akaze_tpu_torch import programs
+    programs.clear()            # a key of an earlier test would replay
+    with programs.eager():
+        want, eager_n = _counted(fn)
+    captures = program.captures
+    first, first_n = _counted(fn)
+    assert program.captures == captures + 1
+    replays = program.replays
+    got, got_n = _counted(fn)
+    assert program.captures == captures + 1
+    assert program.replays == replays + 1
+    assert first_n == eager_n and got_n == eager_n
+    _assert_trees_equal(first, want)
+    _assert_trees_equal(got, want)
+    return want, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavour", sorted(PROGRAM_FLAVOURS))
+def test_pair_program_equals_eager(cuda, flavour):
+    from akaze_tpu_torch import pipeline
+    kw, fixed = PROGRAM_FLAVOURS[flavour]
+    a, b = raw_pair() if fixed else pair()
+    det = Akaze(AkazeConfig(max_pts=2000, **kw), fixed=fixed, device=cuda)
+    at, bt = (torch.as_tensor(x, device=cuda) for x in (a, b))
+    (fa, fb), _ = _replayed(pipeline._jit_detect_and_compute_pair,
+                            lambda: det.detect_and_compute_pair(at, bt))
+    _replayed(pipeline._jit_match, lambda: det.match(fa, fb))
+    assert int(fa.count) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("describe", [True, False])
+def test_single_image_program_equals_eager(cuda, describe):
+    from akaze_tpu_torch import pipeline
+    det = Akaze(AkazeConfig(max_pts=1000), device=cuda)
+    a = torch.as_tensor(pair(240, 320)[0], device=cuda)
+    want, _ = _replayed(pipeline._jit_detect_and_compute,
+                        lambda: det.detect_and_compute(a, describe))
+    assert int(want.count) > 50 and bool(want.words.any()) == describe
+
+
+@pytest.mark.cuda
+def test_program_outputs_are_fresh(cuda):
+    """Call n's outputs stay as they were after call n+1 with other
+    inputs, and a replay makes no host sync."""
+    det = Akaze(AkazeConfig(max_pts=2000), device=cuda)
+    a, b = (torch.as_tensor(x, device=cuda) for x in pair())
+    det.match(*det.detect_and_compute_pair(a, b))   # captures both
+    f1 = det.detect_and_compute_pair(a, b)
+    keep = [x.clone() for x in f1[0]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f2 = det.detect_and_compute_pair(b.flip(0).contiguous(), a)
+        m = det.match(*f2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for x, y in zip(f1[0], keep):
+        assert torch.equal(x, y)
+    assert not torch.equal(f2[0].x, f1[0].x) and m.index.shape[0] == 2000
+
+
+@pytest.mark.cuda
+def test_batched_match_counts_program_equals_eager(cuda):
+    from akaze_tpu_torch.slam import system
+    rng = np.random.default_rng(2)
+    qw = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (512, 16),
+                                       dtype=np.int64).astype(np.int32))
+    words = qw[None].repeat(3, 1, 1)
+    words[:, 200:] ^= torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (3, 312, 16), dtype=np.int64).astype(np.int32))
+    valid = torch.arange(512)[None].repeat(3, 1) < torch.tensor(
+        [[300], [400], [500]])
+    args = [x.to(cuda) for x in (qw, torch.arange(512) < 450, words, valid)]
+    want, _ = _replayed(system._batched_match_counts,
+                        lambda: system._batched_match_counts(*args, 96))
+    assert want.tolist() == [200, 200, 200]
+
+
+@pytest.mark.cuda
+def test_pose_graph_program_replays_damping(cuda):
+    """Each damping value replays to the eager result: damping is an input
+    of the graph, not a constant baked into it."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.slam.posegraph import PoseGraph, optimize_pose_graph
+    R0, t0, graph, fixed = _pose_graph(np.random.default_rng(4))
+    args = (R0.to(cuda), t0.to(cuda), PoseGraph(*(a.to(cuda) for a in graph)))
+    kw = dict(fixed_mask=fixed.to(cuda), robust="cauchy", robust_delta=10.0)
+    outs = []
+    for damping in (1e-6, 10.0, 1e-6):
+        with programs.eager():
+            want = optimize_pose_graph(*args, damping=damping, **kw)
+        got = optimize_pose_graph(*args, damping=damping, **kw)
+        _assert_trees_equal(got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0][0], outs[1][0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        optimize_pose_graph(*args, damping=1.0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_program_replays_lam0(cuda):
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.slam.ba import BAProblem, bundle_adjust
+    R0, t0, X0, prob = _ba_problem(np.random.default_rng(6))
+    args = [a.to(cuda) for a in (R0, t0, X0)] + [
+        BAProblem(*(a.to(cuda) for a in prob))]
+    n = dict(n_cams=R0.shape[0], n_pts=X0.shape[0], iters=6)
+    outs = []
+    for lam0 in (1e-3, 1.0, 1e-3):
+        with programs.eager():
+            want = bundle_adjust(*args, lam0=lam0, **n)
+        got = bundle_adjust(*args, lam0=lam0, **n)
+        _assert_trees_equal(got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0][2], outs[1][2])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bundle_adjust(*args, lam0=0.1, **n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_capture_of_a_sync_raises(cuda):
+    """A function that makes the host wait cannot be captured: the program
+    raises, naming itself and its key, and never runs it eagerly instead;
+    other programs capture and replay after it."""
+    from akaze_tpu_torch import programs
+
+    @programs.jit(static_argnames=("k",))
+    def syncs(x, k):
+        return x * float(x.sum()) + k
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(programs.ProgramError, match="syncs"):
+        syncs(x, k=1)
+    assert syncs.captures == 0 and not syncs.entries
+    with pytest.raises(programs.ProgramError):
+        syncs(x, k=1)
+
+    @programs.jit
+    def fine(x):
+        return x * 2 + 1
+
+    for _ in range(3):
+        assert torch.equal(fine(x), x * 2 + 1)
+    assert fine.captures == 1 and fine.replays == 2
+    programs.clear()            # no graph of this test outlives it

@@ -1,0 +1,266 @@
+"""The port's compiled programs (``akaze_tpu_torch.programs``) against the
+JAX package's ``jax.jit`` sites, on the CPU.
+
+On the CPU a program runs its function as it is (nothing is captured), so
+these tests hold what the CPU can show: the programs declare JAX's static
+arguments, their cache keys follow JAX's retracing rule, traced scalars
+reach the solvers as arguments, and loop-candidate scoring equals JAX's.
+Captured graphs are held against eager runs on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Tolerances: ``_batched_match_counts`` exactly; PGO poses within 5e-4 and
+its cost within 1e-4 relative, BA rotations within 1e-4, translations
+within 1e-3, points within 5e-3 and its cost within 1e-3 relative (the
+bounds ``tests/test_torch_slam.py`` states for these solvers).
+"""
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from akaze_tpu.geometry import se3_compose as jcompose
+from akaze_tpu.geometry import se3_exp as jexp
+from akaze_tpu.slam import ba as jba
+from akaze_tpu.slam import posegraph as jpg
+from akaze_tpu.slam import system as jsys
+from akaze_tpu_torch import Akaze, AkazeConfig, programs
+from akaze_tpu_torch import pipeline as tpipe
+from akaze_tpu_torch.ops import describe as k2
+from akaze_tpu_torch.ops import hamming as k4
+from akaze_tpu_torch.ops import sublevel as k1
+from akaze_tpu_torch.slam import ba as tba
+from akaze_tpu_torch.slam import posegraph as tpg
+from akaze_tpu_torch.slam import system as tsys
+from test_slam import make_ba_problem
+from test_torch_slam import pose_graph_problem, t_
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# each single-device jax.jit site of the JAX package and the port's program
+SITES = [
+    ("akaze_tpu/pipeline.py", "_jit_detect_and_compute_pair",
+     tpipe._jit_detect_and_compute_pair),
+    ("akaze_tpu/pipeline.py", "_jit_detect_and_compute",
+     tpipe._jit_detect_and_compute),
+    ("akaze_tpu/pipeline.py", "_jit_match", tpipe._jit_match),
+    ("akaze_tpu/slam/system.py", "_batched_match_counts",
+     tsys._batched_match_counts),
+    ("akaze_tpu/slam/posegraph.py", "optimize_pose_graph",
+     tpg.optimize_pose_graph),
+    ("akaze_tpu/slam/ba.py", "bundle_adjust", tba.bundle_adjust),
+]
+
+
+def jax_static_arguments(path: str, name: str):
+    """(static_argnames, static_argnums) of the ``partial(jax.jit, ...)``
+    decorator on function ``name`` of ``path``, read from the source."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            for dec in node.decorator_list:
+                if (isinstance(dec, ast.Call)
+                        and ast.unparse(dec.func) == "partial"
+                        and ast.unparse(dec.args[0]) == "jax.jit"):
+                    kw = {k.arg: ast.literal_eval(k.value)
+                          for k in dec.keywords}
+                    return (tuple(kw.get("static_argnames", ())),
+                            tuple(kw.get("static_argnums", ())))
+    raise AssertionError(f"no jax.jit decorator on {path}:{name}")
+
+
+@pytest.mark.parametrize("path,name,program", SITES,
+                         ids=[s[1] for s in SITES])
+def test_programs_declare_jax_static_arguments(path, name, program):
+    names, nums = jax_static_arguments(path, name)
+    assert isinstance(program, programs.Program)
+    assert program.static_argnames == names
+    assert program.static_argnums == nums
+    params = list(program.signature.parameters)
+    assert program.static == set(names) | {params[i] for i in nums}
+
+
+def _words(rng, n):
+    return rng.integers(0, 2 ** 32, (n, 16), dtype=np.uint64).astype(
+        np.uint32)
+
+
+@pytest.mark.parametrize("n_kf,max_dist", [(3, 96), (4, 96), (5, 60)])
+def test_batched_match_counts_matches_jax(n_kf, max_dist):
+    """Stacked words of ``n_kf`` keyframes: some rows copies of the query
+    with a few flipped bits, the rest random; dead slots at the end."""
+    rng = np.random.default_rng(n_kf)
+    t = 96
+    qw = _words(rng, t)
+    qv = np.arange(t) < 80
+    words = np.stack([_words(rng, t) for _ in range(n_kf)])
+    valid = np.stack([np.arange(t) < 70 + 5 * c for c in range(n_kf)])
+    for c in range(n_kf):
+        rows = rng.choice(70, 10 + 10 * c, replace=False)
+        flips = rng.integers(0, 32, (len(rows), 16))
+        words[c, rows] = qw[rows] ^ (np.uint32(1) << flips.astype(np.uint32))
+    want = np.asarray(jsys._batched_match_counts(
+        jnp.asarray(qw), jnp.asarray(qv), jnp.asarray(words),
+        jnp.asarray(valid), max_dist))
+    got = tsys._batched_match_counts(
+        t_(qw.view(np.int32)), t_(qv), t_(words.view(np.int32)), t_(valid),
+        max_dist)
+    assert got.dtype == torch.int32 and got.shape == (n_kf,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 10).all()
+
+
+@pytest.mark.parametrize("damping", [1e-6, 1e-1])
+def test_pose_graph_damping_is_traced(damping):
+    rng = np.random.default_rng(5)
+    R0, t0, graph, fixed = pose_graph_problem(rng)
+    kw = dict(iters=6, robust="cauchy", robust_delta=10.0)
+    Rj, tj, cj = jpg.optimize_pose_graph(
+        jnp.asarray(R0), jnp.asarray(t0),
+        jpg.PoseGraph(*(jnp.asarray(a) for a in graph)), damping=damping,
+        fixed_mask=jnp.asarray(fixed), **kw)
+    Rt, tt, ct = tpg.optimize_pose_graph(
+        t_(R0), t_(t0), tpg.PoseGraph(*(t_(a) for a in graph)),
+        damping=damping, fixed_mask=t_(fixed), **kw)
+    np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=5e-4)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=5e-4)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
+    key, leaves, _, _ = tpg.optimize_pose_graph.key(
+        t_(R0), t_(t0), tpg.PoseGraph(*(t_(a) for a in graph)),
+        damping=damping, fixed_mask=t_(fixed), **kw)
+    assert [x for x in leaves if isinstance(x, float)] == [damping]
+    assert ("scalar", "float") in key[2]
+
+
+@pytest.mark.parametrize("lam0", [1e-3, 1.0])
+def test_bundle_adjust_lam0_is_traced(lam0):
+    rng = np.random.default_rng(7)
+    R, t, X, prob = make_ba_problem(rng, noise=1e-3)
+    n_cams, n_pts = R.shape[0], X.shape[0]
+    dxi = rng.standard_normal((n_cams, 6)).astype(np.float32) * 0.02
+    dxi[0] = 0.0
+    dR, dt = jexp(jnp.asarray(dxi))
+    R0, t0 = jax.vmap(jcompose)(R, t, dR, dt)
+    X0 = X + jnp.asarray(rng.standard_normal(X.shape).astype(np.float32)
+                         * 0.03)
+    kw = dict(n_cams=n_cams, n_pts=n_pts, iters=6)
+    out_j = jba.bundle_adjust(R0, t0, X0, prob, lam0=lam0, **kw)
+    args = (*(t_(a) for a in (R0, t0, X0)),
+            tba.BAProblem(*(t_(a) for a in prob)))
+    # lam0 as a number, and as the 0-d tensor a program's input buffer
+    # holds on the card
+    for lam in (lam0, torch.tensor(lam0)):
+        out_t = tba.bundle_adjust(*args, lam0=lam, **kw)
+        for got, want, tol in zip(out_t[:3], out_j[:3], (1e-4, 1e-3, 5e-3)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=tol)
+        np.testing.assert_allclose(float(out_t[3]), float(out_j[3]),
+                                   rtol=1e-3, atol=1e-9)
+    # lam0 is a traced leaf: its value is no part of the key, its kind is
+    key, leaves, statics, _ = tba.bundle_adjust.key(*args, lam0=lam0, **kw)
+    assert [x for x in leaves if isinstance(x, float)] == [lam0]
+    assert ("scalar", "float") in key[2]
+    assert "lam0" not in dict(statics)
+    assert tba.bundle_adjust.key(*args, lam0=2 * lam0, **kw)[0] == key
+    tkey = tba.bundle_adjust.key(*args, lam0=torch.tensor(lam0), **kw)[0]
+    assert ("tensor", (), torch.float32, torch.device("cpu")) in tkey[2]
+    assert tkey != key
+
+
+def test_keys_follow_static_values_shapes_and_none():
+    prog = tpg.optimize_pose_graph
+    R, t = torch.eye(3).repeat(4, 1, 1), torch.zeros(4, 3)
+    g = tpg.PoseGraph(torch.zeros(8, dtype=torch.int32),
+                      torch.ones(8, dtype=torch.int32),
+                      torch.eye(3).repeat(8, 1, 1), torch.zeros(8, 3),
+                      torch.ones(8))
+    mask = torch.zeros(4, dtype=torch.bool)
+
+    def key(*a, **kw):
+        return prog.key(*a, **kw)[0]
+
+    base = key(R, t, g, iters=5, fixed_mask=mask)
+    # equal signatures, other values: one key (a traced scalar's value is
+    # not part of it)
+    assert key(R + 1, t, g, iters=5, fixed_mask=~mask, damping=0.5) == base
+    assert key(R, t, g, 5, fixed_mask=mask) == base
+    others = [
+        key(R, t, g, iters=6, fixed_mask=mask),                 # static
+        key(R, t, g, iters=5, fixed_mask=mask, robust="huber"),
+        key(R.repeat(2, 1, 1), t.repeat(2, 1), g, iters=5,      # shape
+            fixed_mask=mask.repeat(2)),
+        key(R.double(), t, g, iters=5, fixed_mask=mask),        # dtype
+        key(R, t, g, iters=5),                                  # None
+        key(R, t, g, iters=5, fixed_mask=mask, damping=1),      # int
+    ]
+    assert len(set(others + [base])) == len(others) + 1
+    with pytest.raises(TypeError):
+        key(R, t, g, iters=5, fixed_mask="all")
+    m = tpipe._jit_match
+    w, v = torch.zeros(8, 16, dtype=torch.int32), torch.ones(8, dtype=bool)
+    x = torch.zeros(8)
+    assert m.key(w, v, w, v, x, x, 96)[0] != m.key(w, v, w, v, x, x, 60)[0]
+    assert m.key(w, v, w, v, x, x, 96)[0] == m.key(w, v, w, v, x, x,
+                                                   max_dist=96)[0]
+
+
+def test_cpu_akaze_captures_nothing():
+    """A CPU ``Akaze`` runs the functions as they are: no capture, no
+    replay, the module functions' results, and the kernels' counters
+    unmoved (the plain versions ran)."""
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:104, 0:136].astype(np.float32)
+    img = np.full((104, 136), 0.5, np.float32)
+    for cy, cx, s, amp in zip(*(rng.uniform(lo, hi, 150) for lo, hi in (
+            (0, 104), (0, 136), (2, 4), (-0.3, 0.3)))):
+        img += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    img = np.clip(img, 0, 1).astype(np.float32)
+    a, b = img[:96, :128].copy(), img[5:101, 7:135].copy()
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    before = [fn.launches for fn in counters]
+    det = Akaze(AkazeConfig(max_pts=256, noctaves=2, dthreshold=5e-5),
+                device="cpu")
+    fa, fb = det.detect_and_compute_pair(a, b)
+    m = det.match(fa, fb)
+    f1 = det.detect_and_compute(a, describe=False)
+    plan = det.plan_for(96, 128)
+    wa, wb = tpipe.detect_and_compute_pair(t_(a), t_(b), plan)
+    for got, want in ((fa, wa), (fb, wb)):
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+    assert torch.equal(m.index, tpipe.match(
+        wa.words, wa.valid, wb.words, wb.valid, wb.x, wb.y).index)
+    w1 = tpipe.detect_and_compute(t_(a), plan, describe=False)
+    for g_, w_ in zip(f1, w1):
+        assert torch.equal(g_, w_)
+    for _, _, p in SITES:
+        assert p.captures == 0 and p.replays == 0 and not p.entries
+    assert [fn.launches for fn in counters] == before
+    assert int(fa.count) > 0 and int((m.index >= 0).sum()) > 0
+
+
+def test_eager_context_and_device_check():
+    calls = []
+
+    @programs.jit(static_argnames=("n",))
+    def double(x, n):
+        calls.append(n)
+        return x * n
+
+    x = torch.ones(3)
+    with programs.eager():
+        assert torch.equal(double(x, 2), 2 * x)
+    assert torch.equal(double(x, n=3), 3 * x) and calls == [2, 3]
+    assert double.captures == 0 and not double.entries
+    with pytest.raises(TypeError):
+        double.key(x, 2, 4)           # too many arguments for the signature
+    with pytest.raises(ValueError):
+        programs._program_device("double", [x, torch.ones(1, device="meta")])
+    with pytest.raises(ValueError):
+        programs.jit(double.fn, static_argnames=("m",))

@@ -22,10 +22,13 @@ pairs, sharded PGO and BA, the multi-process runtime), reached through
 ``--spatial N``.
 
 ``programs`` is the counterpart of ``jax.jit``: ``Akaze``'s calls, the
-SLAM path's loop-candidate scoring, PGO and local BA run as compiled
-programs, one captured CUDA graph per static signature on the card
+SLAM path's two-view solve, loop-candidate scoring, PGO and local BA, and
+the essential and homography RANSAC run as compiled programs, one
+captured CUDA graph per static signature on the card
 (``programs.eager()`` runs them eagerly, ``programs.clear()`` drops the
-graphs; the CPU never captures).
+graphs; the CPU never captures).  The RANSAC draws run eagerly between
+them, and ``geometry/linalg.py``'s sync-free solvers stand in for
+``torch.linalg.eigh`` and ``svd`` there.
 
 This package imports torch and numpy, never jax and never ``akaze_tpu``.
 """
@@ -38,10 +41,13 @@ from .pipeline import (Akaze, Features, detect_and_compute,
 from .plan import PipelinePlan, build_plan
 from . import programs
 
+__version__ = "0.2.0"     # the JAX package's version, whose API this ports
+
 __all__ = [
     "AkazeConfig", "Diffusivity", "config_from", "Akaze", "Features",
     "detect_and_compute", "detect_and_compute_batch",
     "detect_and_compute_pair", "features_from_numpy", "features_to_numpy",
     "PipelinePlan",
     "build_plan", "Matches", "match", "hamming_distance_matrix", "programs",
+    "__version__",
 ]

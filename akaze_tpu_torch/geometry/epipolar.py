@@ -4,10 +4,11 @@ Port of ``akaze_tpu/geometry/epipolar.py``.  The essential matrix comes
 from the normalised 8-point algorithm as a batched 9x9 symmetric
 eigenproblem (the null space of A is the smallest eigenvector of A^T A);
 the projection onto the essential manifold and the pose decomposition use
-3x3 SVDs.  ``eigh`` and ``svd`` leave the sign of each vector free, so E is
-defined up to sign (and the 8-point E up to scale); the det(U), det(V)
-fixes keep the decomposition's rotations proper whatever signs the solver
-returned.
+3x3 SVDs.  Both are ``linalg.py``'s sync-free solvers (float64 inside), so
+that the RANSAC programs can be captured.  The sign of each vector is a
+convention of the solver, so E is defined up to sign (and the 8-point E up
+to scale); the det(U), det(V) fixes keep the decomposition's rotations
+proper whatever the signs.
 
 Conventions: points are normalised camera coordinates (pixel coordinates
 premultiplied by K^-1), x2^T E x1 = 0, and the recovered pose (R, t) maps
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..detect import const_table
+from .linalg import _det3, smallest_eigenvector, svd3
 
 # singular values of the essential manifold, and the decomposition's W
 _S_ESSENTIAL = (1.0, 1.0, 0.0)
@@ -27,12 +29,6 @@ _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
 
 def _homog(x):
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
-
-
-def _det3(M):
-    """Determinant of [..., 3, 3] matrices (closed form)."""
-    return torch.sum(M[..., 0, :] * torch.linalg.cross(M[..., 1, :],
-                                                       M[..., 2, :]), dim=-1)
 
 
 def _proper(U, Vt):
@@ -59,21 +55,21 @@ def essential_from_eight(x1, x2, weights=None):
     any vector of its null space is then returned, and the hypothesis still
     scores (finite), as in the JAX package.
     """
-    h1 = _homog(x1)
-    h2 = _homog(x2)
+    h1 = _homog(x1.to(torch.float64))
+    h2 = _homog(x2.to(torch.float64))
     # constraint rows: kron(h2, h1) so that row . vec(E) = h2^T E h1
     A = (h2[..., :, :, None] * h1[..., :, None, :]).reshape(
         x1.shape[:-1] + (9,))
     if weights is not None:
-        A = A * weights[..., None]
+        A = A * weights[..., None].to(torch.float64)
     AtA = A.transpose(-1, -2) @ A                     # [..., 9, 9]
-    _, evecs = torch.linalg.eigh(AtA)
-    e = evecs[..., :, 0]                              # smallest eigenvalue
+    e = smallest_eigenvector(AtA)
     E = e.reshape(e.shape[:-1] + (3, 3))
-    # project to the essential manifold: singular values -> (1, 1, 0)
-    U, _, Vt = torch.linalg.svd(E)
-    U, Vt = _proper(U, Vt)
-    return (U * const_table(_S_ESSENTIAL, E.dtype, E.device)) @ Vt
+    # project to the essential manifold: singular values -> (1, 1, 0);
+    # the third singular pair is dropped, so no det(U), det(V) fix
+    U, _, Vt = svd3(E)
+    S = const_table(_S_ESSENTIAL, E.dtype, E.device)
+    return ((U * S) @ Vt).to(x1.dtype)
 
 
 def sampson_error(E, x1, x2):
@@ -96,7 +92,7 @@ def decompose_essential(E):
 
     Returns (Rs [..., 4, 3, 3], ts [..., 4, 3]) with |t| = 1.
     """
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd3(E)
     U, Vt = _proper(U, Vt)
     W = const_table(_W, E.dtype, E.device)
     R1 = U @ W @ Vt

@@ -1,11 +1,15 @@
 """Batched homography estimation + RANSAC, and DLT PnP absolute pose.
 
 Port of ``akaze_tpu/geometry/homography.py``, shaped as ``ransac.py``: all
-hypotheses solved in one batched 9x9 eigenproblem, scored as one [K, N]
-transfer-error matrix, refined by IRLS (a fixed number of passes whose
-accept test is a ``torch.where``, never a host branch).
+hypotheses solved in one batched 9x9 eigenproblem (``linalg.py``'s
+sync-free solver), scored as one [K, N] transfer-error matrix, refined by
+IRLS (a fixed number of passes whose accept test is a ``torch.where``,
+never a host branch).  The draw runs eagerly; the solve on the sets is a
+compiled program (``programs.py``, JAX's static ``num_hyps`` and
+``refit_iters``).  ``pnp_dlt`` lies in no JAX program and keeps
+``torch.linalg``.
 
-``eigh`` leaves the sign of each eigenvector free, so H (and the DLT
+The eigenvector's sign is a convention of the solver, so H (and the DLT
 projection of ``pnp_dlt``) is defined up to sign and scale; ``pnp_dlt``
 fixes its sign by the points' depth majority.  The Hartley similarity T2 is
 inverted in closed form (no ``torch.linalg.solve``, which syncs with the
@@ -22,8 +26,9 @@ from typing import NamedTuple
 
 import torch
 
-from .epipolar import _det3
-from .ransac import draw_minimal_sets
+from .. import programs
+from .linalg import _det3, smallest_eigenvector
+from .ransac import check_sets, draw_minimal_sets
 
 
 def _homog(x):
@@ -61,8 +66,10 @@ def homography_from_points(x1, x2, weights=None):
     Args: x1, x2 [..., N, 2]; weights optional [..., N].
     Returns H [..., 3, 3] (sign and scale free).
     """
+    dtype = x1.dtype
     x1, T1, _ = _hartley(x1, weights)
     x2, _, T2inv = _hartley(x2, weights)
+    x1, x2 = x1.to(torch.float64), x2.to(torch.float64)
     h1 = _homog(x1)                                         # [..., N, 3]
     zeros = torch.zeros_like(h1)
     u = x2[..., 0:1]
@@ -72,10 +79,8 @@ def homography_from_points(x1, x2, weights=None):
     row2 = torch.cat([h1, zeros, -u * h1], dim=-1)
     A = torch.cat([row1, row2], dim=-2)                     # [..., 2N, 9]
     if weights is not None:
-        A = A * torch.cat([weights, weights], dim=-1)[..., None]
-    AtA = A.transpose(-1, -2) @ A
-    _, evecs = torch.linalg.eigh(AtA)
-    h = evecs[..., :, 0]                                    # smallest
+        A = A * torch.cat([weights, weights], dim=-1)[..., None].to(A.dtype)
+    h = smallest_eigenvector(A.transpose(-1, -2) @ A).to(dtype)
     Hn = h.reshape(h.shape[:-1] + (3, 3))
     # denormalise: H = T2^-1 Hn T1
     return T2inv @ (Hn @ T1)
@@ -97,6 +102,30 @@ class HomographyResult(NamedTuple):
     num_inliers: torch.Tensor  # scalar int32
 
 
+@programs.jit(static_argnames=("num_hyps", "refit_iters"))
+def _ransac_homography(x1, x2, valid, sets, threshold, num_hyps: int = 512,
+                       refit_iters: int = 2) -> HomographyResult:
+    """The solve of ``ransac_homography`` on int64 [num_hyps, 4]
+    ``sets``: a compiled program."""
+    check_sets(sets, num_hyps, 4)
+    Hs = homography_from_points(x1[sets], x2[sets])         # [K, 3, 3]
+    err = homography_transfer_error(Hs, x1[None], x2[None])  # [K, N]
+    counts = ((err < threshold) & valid[None]).sum(dim=1)
+    H = Hs.index_select(0, torch.argmax(counts).view(1))[0]
+
+    # IRLS refit on the inlier set, kept only if it loses no inliers
+    for _ in range(refit_iters):
+        ok = (homography_transfer_error(H, x1, x2) < threshold) & valid
+        H2 = homography_from_points(x1, x2, weights=ok.to(x1.dtype))
+        c_new = ((homography_transfer_error(H2, x1, x2) < threshold)
+                 & valid).sum()
+        H = torch.where(c_new >= ok.sum(), H2, H)
+
+    inliers = (homography_transfer_error(H, x1, x2) < threshold) & valid
+    return HomographyResult(H=H, inliers=inliers,
+                            num_inliers=inliers.sum().to(torch.int32))
+
+
 def ransac_homography(generator, x1, x2, valid, threshold: float = 9.0,
                       num_hyps: int = 512, refit_iters: int = 2,
                       sets=None) -> HomographyResult:
@@ -114,23 +143,10 @@ def ransac_homography(generator, x1, x2, valid, threshold: float = 9.0,
     """
     if sets is None:
         sets = draw_minimal_sets(generator, valid, num_hyps, 4)
-    idx = sets.to(device=x1.device, dtype=torch.int64)
-    Hs = homography_from_points(x1[idx], x2[idx])           # [K, 3, 3]
-    err = homography_transfer_error(Hs, x1[None], x2[None])  # [K, N]
-    counts = ((err < threshold) & valid[None]).sum(dim=1)
-    H = Hs.index_select(0, torch.argmax(counts).view(1))[0]
-
-    # IRLS refit on the inlier set, kept only if it loses no inliers
-    for _ in range(refit_iters):
-        ok = (homography_transfer_error(H, x1, x2) < threshold) & valid
-        H2 = homography_from_points(x1, x2, weights=ok.to(x1.dtype))
-        c_new = ((homography_transfer_error(H2, x1, x2) < threshold)
-                 & valid).sum()
-        H = torch.where(c_new >= ok.sum(), H2, H)
-
-    inliers = (homography_transfer_error(H, x1, x2) < threshold) & valid
-    return HomographyResult(H=H, inliers=inliers,
-                            num_inliers=inliers.sum().to(torch.int32))
+    return _ransac_homography(x1, x2, valid,
+                              sets.to(device=x1.device, dtype=torch.int64),
+                              threshold, num_hyps=num_hyps,
+                              refit_iters=refit_iters)
 
 
 def pnp_dlt(X, u, weights=None):

@@ -9,7 +9,10 @@ The draw is the port's own.  PyTorch cannot reproduce
 ``jax.random.categorical``, so ``draw_minimal_sets`` draws uniformly over
 the valid rows, with replacement, on the mask's device and without a host
 sync; ``ransac_essential(..., sets=...)`` takes given [K, 8] index sets
-instead (the tests feed it the JAX package's draws).  A random state is a
+instead (the tests feed it the JAX package's draws).  The draw runs
+eagerly; the solve on the sets is a compiled program (``programs.py``,
+JAX's static ``num_hyps`` and ``refit_iters``), one captured CUDA graph
+per signature on the card, its threshold a traced input.  A random state is a
 uint32[2] key on the host, as in the JAX package: ``split_key`` advances it
 by a fixed rule and ``sets_from_key`` seeds a device generator from it, so
 a key restored from either package's checkpoint is a valid state.  The two
@@ -23,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import programs
 from .epipolar import essential_from_eight, recover_pose, sampson_error
 
 
@@ -116,6 +120,37 @@ class SetRecorder:
         return sampler
 
 
+def check_sets(sets: torch.Tensor, num_hyps: int, size: int):
+    if tuple(sets.shape) != (num_hyps, size):
+        raise ValueError(f"sets of shape {tuple(sets.shape)}, expected "
+                         f"({num_hyps}, {size})")
+
+
+@programs.jit(static_argnames=("num_hyps", "refit_iters"))
+def _ransac_essential(x1, x2, valid, sets, threshold, num_hyps: int = 512,
+                      refit_iters: int = 2) -> RansacResult:
+    """The solve of ``ransac_essential`` on int64 [num_hyps, 8] ``sets``: a
+    compiled program."""
+    check_sets(sets, num_hyps, 8)
+    Es = essential_from_eight(x1[sets], x2[sets])         # [K, 3, 3]
+    err = sampson_error(Es, x1[None], x2[None])           # [K, N]
+    counts = ((err < threshold) & valid[None]).sum(dim=1)
+    E = Es.index_select(0, torch.argmax(counts).view(1))[0]
+
+    # IRLS refit on the inlier set, kept only if it loses no inliers
+    for _ in range(refit_iters):
+        ok = (sampson_error(E, x1, x2) < threshold) & valid
+        E2 = essential_from_eight(x1, x2, weights=ok.to(x1.dtype))
+        c_new = ((sampson_error(E2, x1, x2) < threshold) & valid).sum()
+        E = torch.where(c_new >= ok.sum(), E2, E)
+
+    inliers = (sampson_error(E, x1, x2) < threshold) & valid
+    R, t, cheir = recover_pose(E, x1, x2, inliers)
+    good = inliers & cheir
+    return RansacResult(E=E, R=R, t=t, inliers=good,
+                        num_inliers=good.sum().to(torch.int32))
+
+
 def ransac_essential(generator, x1, x2, valid, threshold: float = 1e-4,
                      num_hyps: int = 512, refit_iters: int = 2,
                      sets=None) -> RansacResult:
@@ -134,24 +169,10 @@ def ransac_essential(generator, x1, x2, valid, threshold: float = 1e-4,
     """
     if sets is None:
         sets = draw_minimal_sets(generator, valid, num_hyps, 8)
-    idx = sets.to(device=x1.device, dtype=torch.int64)
-    Es = essential_from_eight(x1[idx], x2[idx])           # [K, 3, 3]
-    err = sampson_error(Es, x1[None], x2[None])           # [K, N]
-    counts = ((err < threshold) & valid[None]).sum(dim=1)
-    E = Es.index_select(0, torch.argmax(counts).view(1))[0]
-
-    # IRLS refit on the inlier set, kept only if it loses no inliers
-    for _ in range(refit_iters):
-        ok = (sampson_error(E, x1, x2) < threshold) & valid
-        E2 = essential_from_eight(x1, x2, weights=ok.to(x1.dtype))
-        c_new = ((sampson_error(E2, x1, x2) < threshold) & valid).sum()
-        E = torch.where(c_new >= ok.sum(), E2, E)
-
-    inliers = (sampson_error(E, x1, x2) < threshold) & valid
-    R, t, cheir = recover_pose(E, x1, x2, inliers)
-    good = inliers & cheir
-    return RansacResult(E=E, R=R, t=t, inliers=good,
-                        num_inliers=good.sum().to(torch.int32))
+    return _ransac_essential(x1, x2, valid,
+                             sets.to(device=x1.device, dtype=torch.int64),
+                             threshold, num_hyps=num_hyps,
+                             refit_iters=refit_iters)
 
 
 def normalize_points(x_px, fx, fy, cx, cy):

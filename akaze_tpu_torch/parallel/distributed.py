@@ -111,6 +111,11 @@ def hier_psum(xs, mesh: Mesh, axes: Sequence[str] = HIER_AXES) -> list:
     return col.psum(xs, mesh, axes)
 
 
+def mesh_axes(mesh: Mesh) -> tuple:
+    """The mesh's axis names as a tuple (for axis-generic sums)."""
+    return tuple(mesh.axis_names)
+
+
 def process_local_batch(global_batch: int) -> int:
     """This process's share of a globally sized batch (each host feeds
     only its own pairs)."""

@@ -46,12 +46,17 @@ the counter on every replay instead: the counters count the card's
 launches, warm-up and replays alike.
 
 On the CPU nothing is captured: a call whose tensors lie on the CPU (or
-that has no tensor) runs the function as it is.  ``eager()`` is the
-counterpart of ``jax.disable_jit()``: inside it every program runs its
-function as it is, on the card too.  ``clear()`` drops every graph (the
-counterpart of ``jax.clear_caches()``).  The cache lives in each
-``Program``, at module level, so every caller of one program shares its
-graphs (``Akaze`` instances with equal plans share one pair program).
+that has no tensor) runs the function on its arguments.  ``eager()`` is
+the counterpart of ``jax.disable_jit()``: inside it every program runs
+its function on its arguments, on the card too.  Captured or not, the
+function sees every traced number as a 0-d tensor on the call's device
+(of ``torch.as_tensor``'s dtype for it, as the input buffers are), so
+that eager and captured calls run the same ops: CUDA divides by a
+Python number as a multiply by its reciprocal, by a tensor as a
+division.  ``clear()`` drops every graph (the counterpart of
+``jax.clear_caches()``).  The cache lives in each ``Program``, at module
+level, so every caller of one program shares its graphs (``Akaze``
+instances with equal plans share one pair program).
 """
 
 from __future__ import annotations
@@ -140,16 +145,12 @@ def _leaf_key(x):
 
 
 def _program_device(name: str, leaves):
-    """The CUDA device of the call's tensors, or None for a call that
-    runs as it is (tensors on the CPU, or none)."""
+    """The device of the call's tensors (the CPU where it has none)."""
     devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
     if len(devices) > 1:
         raise ValueError(f"{name}: arguments on several devices "
                          f"{sorted(map(str, devices))}")
-    if not devices:
-        return None
-    dev = devices.pop()
-    return dev if dev.type == "cuda" else None
+    return devices.pop() if devices else torch.device("cpu")
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -164,13 +165,19 @@ def _pool(device):
     return _POOLS[device]
 
 
+def _scalar(x, device):
+    """Leaf ``x`` with a number made a 0-d tensor on ``device``."""
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, dtype=torch.as_tensor(x).dtype,
+                          device=device)
+    return x
+
+
 def _buffer(x, device):
     """A static input buffer for leaf ``x``, filled with it."""
     if isinstance(x, torch.Tensor):
         return x.clone(memory_format=torch.contiguous_format)
-    if x is None:
-        return None
-    return torch.full((), x, dtype=torch.as_tensor(x).dtype, device=device)
+    return _scalar(x, device)
 
 
 def _fresh(leaves):
@@ -242,12 +249,11 @@ class Program:
         return key, leaves, statics, spec
 
     def __call__(self, *args, **kwargs):
-        if _EAGER:
-            return self.fn(*args, **kwargs)
         key, leaves, statics, spec = self.key(*args, **kwargs)
         device = _program_device(self.name, leaves)
-        if device is None:
-            return self.fn(*args, **kwargs)
+        if _EAGER or device.type != "cuda":
+            return self._call(statics, spec,
+                              [_scalar(x, device) for x in leaves])
         entry = self.entries.get(key)
         if entry is None:
             return self._capture(key, leaves, statics, spec, device)

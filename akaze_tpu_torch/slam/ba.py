@@ -176,8 +176,8 @@ def bundle_adjust(R, t, X, prob: BAProblem, n_cams: int, n_pts: int,
       n_cams, n_pts: sizes (== C, P).
       iters: LM iterations.
       cg_iters: CG iterations per Schur solve.
-      lam0: initial LM damping (a number, or a 0-d tensor as a program
-        passes it).
+      lam0: initial LM damping (a number; the function sees it as a 0-d
+        tensor, as ``programs.py`` passes every traced number).
       fixed_cam_mask: [C] bool gauge fixing (default: camera 0 fixed).
 
     Returns (R, t, X, final_cost), the cost a device scalar.
@@ -188,8 +188,7 @@ def bundle_adjust(R, t, X, prob: BAProblem, n_cams: int, n_pts: int,
     free_obs = free[prob.cam.long()][:, None, :]          # [M, 1, 1]
     hc = one_hot(prob.cam, n_cams, R.dtype)
     hp = one_hot(prob.pt, n_pts, R.dtype)
-    lam = (lam0.to(torch.float32) if isinstance(lam0, torch.Tensor)
-           else torch.full((), lam0, dtype=torch.float32, device=R.device))
+    lam = lam0.to(torch.float32)
     for _ in range(iters):
         r, Jc, Jp = _obs_jacobians(R, t, X, prob)
         dc, dp = _schur_solve(r, Jc * free_obs, Jp, prob, hc, hp, lam,

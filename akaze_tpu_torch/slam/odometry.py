@@ -14,7 +14,9 @@ metric depths, with median fallbacks).
 Randomness: the VO keeps a uint32[2] key on the host and splits it once per
 two-view solve (``geometry.ransac.split_key``); ``sampler(key, mask,
 num_hyps)`` turns the subkey into the [K, 8] minimal sets on the device
-(default ``sets_from_key``).
+(default ``sets_from_key``).  A two-view solve is two compiled programs
+(``programs.py``) around that draw, which runs eagerly: the match and
+the putative points, then RANSAC and triangulation on the sets.
 
 ``mesh=``: frames big enough for the row-sharded spatial tier
 (``parallel/spatial.py``) run detection sharded over the mesh's ``data``
@@ -32,9 +34,10 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import programs
 from ..config import AkazeConfig
 from ..geometry import se3_compose, se3_inverse, triangulate
-from ..geometry.ransac import (make_key, normalize_points, ransac_essential,
+from ..geometry.ransac import (_ransac_essential, make_key, normalize_points,
                                sets_from_key, split_key)
 from ..match import match
 from ..pipeline import Akaze, Features
@@ -69,24 +72,46 @@ def to_numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
+@programs.jit
+def _putative(words1, valid1, x1, y1, words2, valid2, x2, y2, fx, fy, cx,
+              cy):
+    """The first program of a two-view solve: matches of view 1 against
+    view 2 (K4), both views' normalised coordinates and the putative mask
+    (accepted matches of valid slots)."""
+    m = match(words1, valid1, words2, valid2, x2, y2)
+    p1 = normalize_points(torch.stack([x1, y1], -1), fx, fy, cx, cy)
+    p2 = normalize_points(torch.stack([m.match_x, m.match_y], -1),
+                          fx, fy, cx, cy)
+    return m, p1, p2, (m.index >= 0) & valid1
+
+
+@programs.jit(static_argnames=("num_hyps",))
+def _solve(x1, x2, putative, sets, threshold, num_hyps: int = 512):
+    """The second program of a two-view solve: RANSAC on the drawn sets,
+    then triangulation of every slot under the recovered pose."""
+    res = _ransac_essential.fn(x1, x2, putative, sets, threshold,
+                               num_hyps=num_hyps)
+    X1, z1, z2 = triangulate(res.R, res.t, x1, x2)
+    return res, X1, z1, z2
+
+
 def _two_view(key, f1: Features, f2: Features, fx, fy, cx, cy, threshold,
               num_hyps: int = 512, sampler=sets_from_key):
-    """Match (K4), RANSAC essential and triangulation on the device.
+    """Match (K4), RANSAC essential and triangulation on the device: the
+    programs ``_putative`` and ``_solve``, with the draw between them.
 
     ``sampler(key, putative_mask, num_hyps)`` gives the [num_hyps, 8]
     minimal sets.  Returns (m, res, X1, z1, z2): matches of f1 against f2,
     the RANSAC result (its pose maps camera-1 points into camera 2), and
     landmark estimates in camera-1 coordinates for every query slot.
     """
-    m = match(f1.words, f1.valid, f2.words, f2.valid, f2.x, f2.y)
-    x1 = normalize_points(torch.stack([f1.x, f1.y], -1), fx, fy, cx, cy)
-    x2 = normalize_points(torch.stack([m.match_x, m.match_y], -1),
-                          fx, fy, cx, cy)
-    putative = (m.index >= 0) & f1.valid
-    res = ransac_essential(None, x1, x2, putative, threshold=threshold,
-                           num_hyps=num_hyps,
-                           sets=sampler(key, putative, num_hyps))
-    X1, z1, z2 = triangulate(res.R, res.t, x1, x2)
+    m, x1, x2, putative = _putative(f1.words, f1.valid, f1.x, f1.y,
+                                    f2.words, f2.valid, f2.x, f2.y,
+                                    fx, fy, cx, cy)
+    sets = sampler(key, putative, num_hyps)
+    res, X1, z1, z2 = _solve(x1, x2, putative,
+                             sets.to(device=x1.device, dtype=torch.int64),
+                             threshold, num_hyps=num_hyps)
     return m, res, X1, z1, z2
 
 

@@ -69,8 +69,10 @@ any disagreement:
      the main path's on the same pair, > 500 matches, backend cuda, both
      drawings written; then its path in this process with the launch
      counters read); ``ransac_homography`` on the main pair's matches (the
-     known shift within 0.5 px, inliers > 0.85; timed, host syncs
-     counted), on 2,000 points with outliers and the CPU run's sets, and
+     known shift within 0.5 px, inliers > 0.85; its program held bit for
+     bit against the eager call, no host sync, its graph's nodes, timed
+     eager and captured), on 2,000 points with outliers and the CPU run's
+     sets, and
      ``pnp_dlt``, card against CPU; ``debug_planes`` of one 960x1280 image
      on the card (13 K1 launches) against the CPU; the native host
      runtime built with g++ (a fallback fails) and ``FrameSequence(...,
@@ -116,9 +118,14 @@ any disagreement:
      traced damping, each without a sync and timed per call in turns; the
      SLAM route eagerly and with programs: keyframes and edges equal bit
      for bit, no new capture on a repeated route, frame, PGO and BA times
-     side by side; each key's warm-up and capture seconds and the MiB its
-     capture added to the device's shared graph pool, and that pool's
-     size after the route.
+     side by side, host syncs per tracked and keyframe frame; each key's
+     warm-up and capture seconds and the MiB its capture added to the
+     device's shared graph pool, and that pool's size after the route; the
+     two-view programs (``_putative`` and ``_solve``, the draw eager
+     between them) on every tracked and loop pair of the eager route, each
+     equal bit for bit to its eager call, K4 equal to its plain version on
+     every pair, no host sync inside or between the programs, each graph's
+     nodes, and a tracked pair's two-view eager and captured in turns.
      Every phase above that calls ``Akaze``, ``SlamSystem`` or the solvers
      drives the programs.
 
@@ -306,16 +313,19 @@ def device_kernels(torch, fn, reps: int = PROFILE_REPS) -> dict:
     return {k: (ns / reps / 1e6, n / reps) for k, (ns, n) in out.items()}
 
 
-def profiled(torch, fn, needles, reps: int = PROFILE_REPS) -> dict:
-    """``device_kernels`` of ``fn``, taken again (up to 3 times) while a
-    kernel named by one of ``needles`` is missing: the trace can drop
-    events."""
-    for _ in range(3):
-        prof = device_kernels(torch, fn, reps)
+def profiled(torch, fn, needles, reps: int = PROFILE_REPS,
+             grow: int = 10) -> dict:
+    """``device_kernels`` of ``fn``, taken again (up to 3 times, each over
+    ``grow`` times the calls of the one before) while a kernel named by one
+    of ``needles`` is missing: the trace can drop events, a trace of a few
+    short calls most often."""
+    for attempt in range(3):
+        prof = device_kernels(torch, fn, reps * grow ** attempt)
         missing = [n for n in needles if not any(n in k for k in prof)]
         if not missing:
             return prof
-    fail(f"no {missing} kernel in 3 profiler traces")
+    fail(f"no {missing} kernel in 3 profiler traces; the last held "
+         f"{len(prof)} kernel names: {sorted(prof)[:6]}")
 
 
 def kernel_time(profile: dict, needle: str):
@@ -546,10 +556,31 @@ def phase_k2(torch, images, plan, fixed=False, tag="K2"):
                 plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
 
 
+def k4_library_ms(torch, w1, w2, v2, n1, n2):
+    """CUDA-event ms of the library form of K4's function on the live
+    extents: one ``torch._int_mm`` (cuBLAS int8) of the +-1 bit lanes and
+    ``topk(k=2)`` of the masked dot products.  A yardstick: the port never
+    calls it."""
+    def plus_minus_one(words):
+        shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+        bits = (words[:, :, None] >> shifts) & 1
+        return (1 - 2 * bits).reshape(words.shape[0], 512).to(torch.int8)
+
+    a = plus_minus_one(w1[:max(n1, 17)])
+    n2p = max(-(-n2 // 8) * 8, 8)
+    pad = torch.nn.functional.pad
+    b = plus_minus_one(pad(w2[:n2], (0, 0, 0, n2p - n2))).t().contiguous()
+    live = pad(v2[:n2], (0, n2p - n2))
+    neg = torch.full((), -(1 << 30), dtype=torch.int32, device=w1.device)
+    return cuda_ms(torch, lambda: torch.topk(
+        torch.where(live, torch._int_mm(a, b), neg), 2, dim=1), reps=9)
+
+
 def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
     """K4 against its plain version on one input: ``Matches`` equal; its
-    times, host time and bound (the +-1 int8 tensor-core form of the TPU
-    kernel: 2 x 486 operations per live pair)."""
+    times, host time, bound (the +-1 int8 tensor-core form of the TPU
+    kernel: 2 x 486 operations per live pair) and the library yardstick
+    (``k4_library_ms``)."""
     from akaze_tpu_torch.match import matches_from_top2
     from akaze_tpu_torch.ops.hamming import (hamming_top2,
                                              hamming_top2_plain, last_live)
@@ -578,12 +609,15 @@ def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
                             "hamming_kernel")
     nbytes = (n1 + n2) * 64 + n2 + 3 * 4 * w1.shape[0]
     bms, by = bound(nbytes, 2 * 486 * n1 * n2, INT8_TC_OPS_PER_S)
+    library = k4_library_ms(torch, w1, w2, v2, n1, n2)
     print(f"[{tag}] device {dev_ms:.4f} ms (profiler); event-bracketed "
           f"(host + device) {event:.3f} ms vs plain {plain_ms:.3f} ms; host "
           f"{host:.1f} us per call; bound {bms * 1e3:.2f} us ({by}; popcount "
-          f"form {n1 * n2 * 16 / (132 * 16 * 1.98e9) * 1e6:.1f} us)")
+          f"form {n1 * n2 * 16 / (132 * 16 * 1.98e9) * 1e6:.1f} us); "
+          f"library (_int_mm + topk) {library:.4f} ms")
     return dict(max_abs_err=err, ties=ties, device_ms=dev_ms, event_ms=event,
-                plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
+                plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
 def k4_stress_inputs(torch, dev):
@@ -1026,10 +1060,10 @@ def phase_slam_profile(torch, dev, frames):
     return per
 
 
-def phase_slam_repeat(torch, dev, frames, first):
-    """The full-size run again: keyframe trajectory and edges bit for bit
-    equal to the first run; host syncs per frame counted under
-    ``torch.cuda.set_sync_debug_mode("warn")`` (not gated)."""
+def route_syncs(torch, dev, frames):
+    """The TUM route on a new system with its host syncs counted per frame
+    under ``torch.cuda.set_sync_debug_mode("warn")``: (system, tracked
+    frames' counts, keyframe frames' counts), the first frame left out."""
     import warnings
     s = tum_system(dev)
     syncs = []
@@ -1044,6 +1078,15 @@ def phase_slam_repeat(torch, dev, frames, first):
                 torch.cuda.set_sync_debug_mode("default")
         n = sum("synchroniz" in str(w.message) for w in caught)
         syncs.append((n, len(s.vo.keyframes) > n_kf))
+    return (s, [n for k, (n, kf) in enumerate(syncs) if k and not kf],
+            [n for k, (n, kf) in enumerate(syncs) if k and kf])
+
+
+def phase_slam_repeat(torch, dev, frames, first):
+    """The full-size run again: keyframe trajectory and edges bit for bit
+    equal to the first run; host syncs per frame counted (``route_syncs``,
+    not gated).  Returns the counts: (tracked frames', keyframe frames')."""
+    s, tracked, keyf = route_syncs(torch, dev, frames)
     a, b = first.keyframe_trajectory(), s.keyframe_trajectory()
     check(a.shape == b.shape and np.array_equal(a, b),
           "slam: two card runs differ")
@@ -1051,16 +1094,12 @@ def phase_slam_repeat(torch, dev, frames, first):
           and all(np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3])
                   for x, y in zip(first.edges, s.edges)),
           "slam: two card runs' edges differ")
-    tracked = [n for k, (n, kf) in enumerate(syncs) if k and not kf]
-    keyf = [n for k, (n, kf) in enumerate(syncs) if k and kf]
-    res = dict(tracked=float(np.median(tracked)),
-               keyframe=float(np.median(keyf)))
     print(f"[slam repeat] a second full-size run: keyframe trajectory and "
           f"edges bit for bit equal; host syncs per frame (sync debug "
-          f"'warn'): tracked median {res['tracked']:.0f} "
+          f"'warn'): tracked median {np.median(tracked):.0f} "
           f"(min {min(tracked)}, max {max(tracked)}), keyframe frames "
-          f"median {res['keyframe']:.0f} (max {max(keyf)})")
-    return res
+          f"median {np.median(keyf):.0f} (max {max(keyf)})")
+    return tracked, keyf
 
 
 def small_system(dev, intr, sampler):
@@ -1233,12 +1272,14 @@ def phase_cli(torch, card, raw_pair, expected):
 def phase_homography(torch, dev, card, fa, m, shift):
     """``ransac_homography`` (512 hypotheses, 9 px^2) on the main pair's
     accepted matches: the known shift as a homography within 0.5 px at the
-    image corners, inlier fraction > 0.85; its time between CUDA events
-    and its host syncs (counted under sync debug 'warn', not gated: eigh
-    has no _ex form).  The outlier case at ``HOMOGRAPHY_N`` points on the
-    card with the CPU run's sets, and ``pnp_dlt``, against the CPU."""
-    import warnings
-    from akaze_tpu_torch.geometry.homography import (pnp_dlt,
+    image corners, inlier fraction > 0.85; its program
+    (``_ransac_homography``) held against ``programs.eager()`` bit for
+    bit, no host sync in the draw or the replay, its graph's nodes, and
+    its time eager and captured in turns.  The outlier case at
+    ``HOMOGRAPHY_N`` points on the card with the CPU run's sets, and
+    ``pnp_dlt``, against the CPU."""
+    from akaze_tpu_torch.geometry.homography import (_ransac_homography,
+                                                     pnp_dlt,
                                                      ransac_homography)
     from akaze_tpu_torch.geometry.ransac import draw_minimal_sets
     from akaze_tpu_torch.testing import (HOMOGRAPHY_CARD_TOL,
@@ -1248,8 +1289,19 @@ def phase_homography(torch, dev, card, fa, m, shift):
     x1 = torch.stack([fa.x, fa.y], 1)
     x2 = torch.stack([m.match_x, m.match_y], 1)
     valid = m.index >= 0
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    res = ransac_homography(gen, x1, x2, valid, 9.0, 512)
+
+    def call():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ransac_homography(gen, x1, x2, valid, 9.0, 512)
+
+    res, _ = hold_program(torch, _ransac_homography, call, "homography")
+    no_sync(torch, call, "homography")
+    sets = draw_minimal_sets(torch.Generator(device=dev).manual_seed(SEED),
+                             valid, 512, 4)
+    nodes, node_ms = graph_nodes(torch, _ransac_homography, x1, x2, valid,
+                                 sets, 9.0, num_hyps=512, refit_iters=2)
+    eager, captured = in_turns(torch, call, 7)
+    key_line(_ransac_homography, "homography")
     Hm = (res.H / res.H[2, 2]).double().cpu()
     corners = torch.tensor([[0.0, 0.0], [W - 1, 0.0], [0.0, H - 1],
                             [W - 1, H - 1]], dtype=torch.float64)
@@ -1262,24 +1314,15 @@ def phase_homography(torch, dev, card, fa, m, shift):
         moved = corners - torch.tensor([shift[1], shift[0]],
                                        dtype=torch.float64)
         drift = float((hc[:, :2] / hc[:, 2:] - moved).abs().max())
-    times = cuda_times(torch, lambda: ransac_homography(gen, x1, x2, valid,
-                                                        9.0, 512), reps=7)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            ransac_homography(gen, x1, x2, valid, 9.0, 512)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
     print(f"[homography] {n_valid} accepted matches of the main pair: "
           f"{int(res.num_inliers)} inliers ({frac:.4f}); H / H22 = "
           f"{np.round(Hm.numpy(), 5).tolist()}; corners off the known "
           f"shift by {drift} px")
-    print(f"[homography] card: {card}; ransac_homography (512 hypotheses) "
-          f"{spread(times)} between CUDA events, {syncs} host syncs (sync "
-          f"debug 'warn', not gated)")
+    print(f"[homography] card: {card}; ransac_homography (512 hypotheses): "
+          f"captured = eager bit for bit; no host sync (draw and replay); "
+          f"graph {nodes:.0f} device nodes, {node_ms:.3f} ms device; eager "
+          f"{spread(eager)}, captured {spread(captured)} (in turns, CUDA "
+          f"events)")
     check(frac > 0.85, f"[homography] inlier fraction {frac:.4f}")
     check(drift is None or drift < 0.5,
           f"[homography] corners off the known shift by {drift} px")
@@ -1799,14 +1842,16 @@ def phase_mesh_match(torch, dev, card):
     ms, nl = kernel_time(profiled(torch, fn, ("hamming_kernel",)),
                          "hamming_kernel")
     bms, by = k4c["bound_ms"], k4c["bound_by"]
+    library = k4_library_ms(torch, w1, w2, v2, w1.shape[0], w2.shape[0])
     print(f"[mesh match] 10000 x 10000 over 4 shards on one card: Matches "
           f"equal to unsharded K4's ({int((got.index >= 0).sum())} "
           f"accepted); 4 K4 launches ({nl:.0f} in the trace), each = plain; "
           f"device {ms:.4f} ms per call; call {spread(times)}; bound "
-          f"{bms * 1e3:.2f} us ({by}); card: {card}")
+          f"{bms * 1e3:.2f} us ({by}); library (_int_mm + topk) "
+          f"{library:.4f} ms; card: {card}")
     return dict(launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                call_ms=float(np.median(times)))
+                call_ms=float(np.median(times)), library_ms=library)
 
 
 def phase_mesh_dp(torch, dev, card):
@@ -2075,7 +2120,7 @@ def phase_mesh_slam(torch, dev, card, frames, single):
     with no_plain_versions():
         prof = profiled(torch, lambda: s.process(next(rest)),
                         ("tiled_kernel<float>", "octave_kernel<float>",
-                         "describe_kernel<__nv_bfloat16"))
+                         "describe_kernel<__nv_bfloat16"), grow=1)
     rows = dict(launches=launches, k1=k1c, k2=k2c,
                 tiled=kernel_time(prof, "tiled_kernel<float>"),
                 resident=kernel_time(prof, "octave_kernel<float>"),
@@ -2173,7 +2218,8 @@ def mesh_rows(spatials, match, dp, slam, k1_rep, k2_rep, k4_rep):
                      replaces=k4_rep, launches=match["launches"],
                      max_abs_err=match["max_abs_err"], ms=match["ms"],
                      plain_ms=match["plain_ms"], bound_ms=match["bound_ms"],
-                     bound_by=match["bound_by"]))
+                     bound_by=match["bound_by"],
+                     library_ms=match["library_ms"]))
     # the dp step: every number from its own launches
     k1, k2, k4 = dp["k1"], dp["k2"], dp["k4"]
     for name, needle, key, src, rep, err, plain, nb, no in (
@@ -2304,6 +2350,15 @@ def busy(torch, fn, eager: bool):
     with programs.eager() if eager else contextlib.nullcontext():
         prof = device_kernels(torch, fn)
     return sum(v[0] for v in prof.values()), sum(v[1] for v in prof.values())
+
+
+def graph_nodes(torch, program, *args, **kwargs):
+    """(device events, device ms) of one replay of ``program``'s graph for
+    these arguments, from the profiler: its kernel, copy and memset
+    nodes."""
+    graph = program.entries[program.key(*args, **kwargs)[0]].graph
+    prof = device_kernels(torch, graph.replay)
+    return sum(v[1] for v in prof.values()), sum(v[0] for v in prof.values())
 
 
 def key_line(program, tag):
@@ -2550,14 +2605,18 @@ def same_map(a, b):
                     for x, y in zip(a.edges, b.edges)))
 
 
-def phase_program_route(torch, dev, frames, first, card):
+def phase_program_route(torch, dev, frames, first, syncs, card):
     """The SLAM route eagerly (``programs.eager()``) and with programs
     (every key captured by the first run, ``first``): keyframes and edges
     equal bit for bit to the eager run's and to the first run's; no new
-    capture; frame, PGO and BA times side by side; the programs' keys and
-    the shared graph pool after the route."""
+    capture; frame, PGO and BA times side by side; host syncs per frame of
+    an eager route beside ``syncs``, those of ``[slam repeat]``'s route
+    with programs; the programs' keys and the shared graph pool after the
+    route."""
     from akaze_tpu_torch import programs
-    with programs.eager():
+    from akaze_tpu_torch.slam import odometry, system
+    with programs.eager(), recording(odometry, "_two_view") as tracked, \
+            recording(system, "_two_view") as loops:
         eager = timed_route(torch, dev, frames)
     captures = sum(p.captures for p in programs.programs())
     captured = timed_route(torch, dev, frames)
@@ -2568,6 +2627,8 @@ def phase_program_route(torch, dev, frames, first, card):
           "[program route] two captured routes differ")
     check(new == 0, f"[program route] a repeated route captured {new} "
           f"new keys")
+    with programs.eager():
+        eager_syncs = route_syncs(torch, dev, frames)[1:]
     stats = programs.stats()
     pool = sum(s["pool_bytes"] for s in stats) / 2**20
     per = {}
@@ -2579,7 +2640,11 @@ def phase_program_route(torch, dev, frames, first, card):
                captured=[float(np.median(captured[1])),
                          float(np.median(captured[2])), captured[3],
                          captured[4]],
-               keys=per, pool_mib=pool)
+               keys=per, pool_mib=pool,
+               syncs={kind: [float(np.median(c)) for c in counts]
+                      for kind, counts in (("eager", eager_syncs),
+                                           ("captured", syncs))},
+               two_view_calls={"tracked": tracked, "loop": loops})
     print(f"[program route] {len(frames)} frames: keyframes and edges equal "
           f"bit for bit to the eager run's and the first run's; no new "
           f"capture. median tracked frame eager {out['eager'][0]:.3f} / "
@@ -2588,10 +2653,92 @@ def phase_program_route(torch, dev, frames, first, card):
           f"call {out['eager'][2]:.3f} / {out['captured'][2]:.3f} ms; local "
           f"BA per call {out['eager'][3]:.3f} / {out['captured'][3]:.3f} ms "
           f"(host wall per section); card: {card}")
+    print(f"[program route] host syncs per frame (sync debug 'warn', median "
+          f"over the route): tracked frames eager "
+          f"{out['syncs']['eager'][0]:.0f} / captured "
+          f"{out['syncs']['captured'][0]:.0f} (max {max(syncs[0])}), "
+          f"keyframe frames {out['syncs']['eager'][1]:.0f} / "
+          f"{out['syncs']['captured'][1]:.0f} (max {max(syncs[1])})")
     print(f"[programs] after the SLAM route: {len(stats)} captured keys "
           f"{per}; the shared graph pool {pool:.1f} MiB; torch.cuda "
           f"reserved "
           f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+    return out
+
+
+def phase_program_two_view(torch, calls, card):
+    """The two-view programs (``_putative``: K4's match and the putative
+    points; ``_solve``: RANSAC and triangulation; the draw runs eagerly
+    between them) on the SLAM route's tracked pairs and loop pairs, as the
+    eager route called ``_two_view`` (``calls``): each call captured
+    equals it under ``programs.eager()`` bit for bit, with no new capture;
+    K4 equals its plain version on every pair; no host sync inside either
+    program or between them; each graph's nodes; a tracked pair's
+    ``_two_view`` eager and captured in turns, and its device busy time."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.geometry.ransac import sets_from_key
+    from akaze_tpu_torch.match import matches_from_top2
+    from akaze_tpu_torch.ops.hamming import (hamming_top2,
+                                             hamming_top2_plain, last_live)
+    from akaze_tpu_torch.slam import odometry
+    progs = (odometry._putative, odometry._solve)
+    captures = [p.captures for p in progs]
+    for kind, recorded in calls.items():
+        check(bool(recorded), f"[program two_view] no {kind} pair recorded")
+        for a, kw in recorded:
+            with programs.eager():
+                want = odometry._two_view(*a, **kw)
+            got = odometry._two_view(*a, **kw)
+            equal_outputs(torch, got, want, f"program two_view {kind}")
+            f1, f2 = a[1], a[2]
+            c1, c2 = last_live(f1.valid), last_live(f2.valid)
+            top = hamming_top2(f1.words, f2.words, f2.valid, c1, c2)
+            plain = hamming_top2_plain(f1.words, f2.words, f2.valid, c1, c2)
+            same = (all(torch.equal(x, y) for x, y in zip(top, plain))
+                    and all(torch.equal(x, y) for x, y in zip(
+                        matches_from_top2(*top, f1.valid, f2.x, f2.y),
+                        want[0])))
+            check(same, f"[program two_view] {kind} pair: K4 differs from "
+                  f"its plain version")
+        no_sync(torch, lambda: odometry._two_view(*a, **kw),
+                f"program two_view {kind}")
+    new = [p.captures - n for p, n in zip(progs, captures)]
+    check(new == [0, 0], f"[program two_view] new captures {new}")
+    (key, f1, f2, fx, fy, cx, cy, thr), kw = calls["tracked"][0]
+    m, x1, x2, put = odometry._putative(f1.words, f1.valid, f1.x, f1.y,
+                                        f2.words, f2.valid, f2.x, f2.y,
+                                        fx, fy, cx, cy)
+    sets = sets_from_key(key, put, 512)
+    nodes = {"_putative": graph_nodes(
+                 torch, odometry._putative, f1.words, f1.valid, f1.x, f1.y,
+                 f2.words, f2.valid, f2.x, f2.y, fx, fy, cx, cy),
+             "_solve": graph_nodes(torch, odometry._solve, x1, x2, put, sets,
+                                   thr, num_hyps=512)}
+
+    def call():
+        return odometry._two_view(*calls["tracked"][0][0],
+                                  **calls["tracked"][0][1])
+
+    eager, captured = in_turns(torch, call, REPS)
+    out = dict(eager_ms=float(np.median(eager)),
+               captured_ms=float(np.median(captured)), nodes=nodes,
+               keys=key_line(odometry._putative, "program two_view")
+               + key_line(odometry._solve, "program two_view"))
+    for kind in ("eager", "captured"):
+        ms, events = busy(torch, call, kind == "eager")
+        out[f"{kind}_busy_ms"] = ms
+        out[f"{kind}_idle"] = 1.0 - ms / out[f"{kind}_ms"]
+    print(f"[program two_view] {len(calls['tracked'])} tracked and "
+          f"{len(calls['loop'])} loop pairs of the route: captured = eager "
+          f"bit for bit, no new capture; K4 = plain on every pair; no host "
+          f"sync inside or between the programs; graph nodes (device "
+          f"events of one replay, device ms): " + ", ".join(
+              f"{k} {n:.0f} in {ms:.3f} ms" for k, (n, ms) in nodes.items())
+          + f"; a tracked pair's _two_view eager {spread(eager)}, captured "
+          f"{spread(captured)} (in turns); device busy eager "
+          f"{out['eager_busy_ms']:.3f} ms (idle {out['eager_idle']:.3f}), "
+          f"captured {out['captured_busy_ms']:.3f} ms (idle "
+          f"{out['captured_idle']:.3f}); card: {card}")
     return out
 
 
@@ -2709,7 +2856,7 @@ def main() -> int:
     k3 = phase_k2(torch, img1, plan1, tag="K3 (K2 single image)")
     slam = phase_slam(torch, dev, frames, offsets, per_frame_k1)
     prof_slam = phase_slam_profile(torch, dev, frames)
-    phase_slam_repeat(torch, dev, frames, slam["system"])
+    syncs = phase_slam_repeat(torch, dev, frames, slam["system"])
     fa = det1.detect_and_compute(frames[0])
     fb = det1.detect_and_compute(frames[1])
     k4_slam = k4_case(torch, "K4 slam", fa.words, fb.words, fa.valid,
@@ -2718,7 +2865,9 @@ def main() -> int:
     phase_program_single(torch, det1, frames[0], "program single 480x640")
     phase_program_candidates(torch, slam["system"])
     phase_program_solvers(torch, dev)
-    phase_program_route(torch, dev, frames, slam["system"], card)
+    route = phase_program_route(torch, dev, frames, slam["system"], syncs,
+                                card)
+    phase_program_two_view(torch, route["two_view_calls"], card)
     print(f"[slam] card: {card}; median frame {slam['tracked_ms']:.3f} ms "
           f"tracked, {slam['keyframe_ms']:.3f} ms with a new keyframe")
 
@@ -2812,7 +2961,7 @@ def main() -> int:
                      mesh_slam["rows"], k1_rep, k2_rep, k4_rep)
     kernels = []
     for row in mesh:
-        kernels.append(dict(row, route="cuda", library_ms=None))
+        kernels.append(dict({"library_ms": None}, route="cuda", **row))
         print(f"[kernels] {row['name']}: {row['launches']} launches, device "
               f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), plain {row['plain_ms']:.3f} ms, max abs "
@@ -2823,7 +2972,7 @@ def main() -> int:
                "device_ms": per_launch, "host_us": r["host_us"],
                "event_ms": event, "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": None}
+               "library_ms": r.get("library_ms")}
         if name in ("tiled_kernel", "octave_kernel"):
             row["b1_device_ms_per_image"] = k1_b1[name == "octave_kernel"]
         if name == "hamming_kernel":

@@ -898,13 +898,15 @@ def _two_view_problem(rng, n=200, noise=5e-4, outlier_frac=0.3):
 
 @pytest.mark.cuda
 def test_ransac_on_card_matches_cpu(cuda):
-    """The same draw on both devices.  The 8-point normal matrix A^T A is
-    ill-conditioned in float32 and cuSOLVER's eigensolvers round otherwise
-    than LAPACK's, so E moves by up to ~0.06 (measured on an H100): held
-    are the inlier count within 2, the inlier masks on all but 3% of the
-    rows, and both results within the JAX tests' bars of the true pose
-    (R within 0.02, |cos t| > 0.99), E up to sign within 0.1.  The card's
-    own draw stays on the card (no host sync) and picks valid rows only."""
+    """The same draw on both devices.  The solvers (``geometry/linalg.py``)
+    run the same ops on both devices, in float64, but the two devices
+    round the float32 products around them differently, and a RANSAC
+    winner can flip on a near tie: held are the inlier count within 2, the
+    inlier masks on all but 3% of the rows, and both results within the
+    JAX tests' bars of the true pose (R within 0.02, |cos t| > 0.99), E up
+    to sign within 0.1 (bounds set when cuSOLVER's eigensolvers moved E by
+    up to ~0.06 on an H100).  The card's own draw stays on the card (no
+    host sync) and picks valid rows only."""
     from akaze_tpu_torch.geometry.ransac import (draw_minimal_sets,
                                                  ransac_essential)
     x1, x2, R, t = _two_view_problem(np.random.default_rng(3))
@@ -1108,10 +1110,10 @@ def test_slam_images_on_card_match_cpu(cuda):
 def test_slam_projected_on_card_matches_cpu(cuda):
     """``projected_sequence`` (a 3-D scene): keyframes and edges equal,
     edge weights within 0.3 and keyframe trajectories within 5e-2 of the
-    map's extent.  The loose bounds are RANSAC's: on the same sets the
-    card's E differs from the CPU's by up to ~0.06
-    (``test_ransac_on_card_matches_cpu``); measured on an H100: 0.139 and
-    0.022."""
+    map's extent.  The loose bounds date from cuSOLVER's eigensolvers
+    (measured 0.139 and 0.022 on an H100); with the solvers of
+    ``geometry/linalg.py``, which run the same ops on both devices,
+    ``chip_smoke.py`` measured 5.1e-5 and 1.4e-5 (an H100, 700 W)."""
     from akaze_tpu_torch.io.dataset import projected_sequence
     from akaze_tpu_torch.pipeline import features_from_numpy
     frames, _ = projected_sequence(np.random.default_rng(5))
@@ -1520,21 +1522,23 @@ def _assert_trees_equal(got, want):
 
 
 def _replayed(program, fn):
-    """Run ``fn`` (one call of ``program``) eagerly, then, with every
-    graph dropped, as its first (capturing) and second (replaying) call; check the program's counts
-    and that the replay equals the eager run bit for bit and counts the
-    same launches.  Returns the eager and replayed results."""
+    """Run ``fn`` (one call of ``program``, or of each program of a tuple)
+    eagerly, then, with every graph dropped, as its first (capturing) and
+    second (replaying) call; check the programs' counts and that the
+    replay equals the eager run bit for bit and counts the same launches.
+    Returns the eager and replayed results."""
     from akaze_tpu_torch import programs
+    progs = program if isinstance(program, tuple) else (program,)
     programs.clear()            # a key of an earlier test would replay
     with programs.eager():
         want, eager_n = _counted(fn)
-    captures = program.captures
+    captures = [p.captures for p in progs]
     first, first_n = _counted(fn)
-    assert program.captures == captures + 1
-    replays = program.replays
+    assert [p.captures for p in progs] == [n + 1 for n in captures]
+    replays = [p.replays for p in progs]
     got, got_n = _counted(fn)
-    assert program.captures == captures + 1
-    assert program.replays == replays + 1
+    assert [p.captures for p in progs] == [n + 1 for n in captures]
+    assert [p.replays for p in progs] == [n + 1 for n in replays]
     assert first_n == eager_n and got_n == eager_n
     _assert_trees_equal(first, want)
     _assert_trees_equal(got, want)
@@ -1650,6 +1654,109 @@ def test_bundle_adjust_program_replays_lam0(cuda):
         bundle_adjust(*args, lam0=0.1, **n)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _two_view_case(device):
+    """Frames 0 and 1 of ``projected_sequence`` (a 3-D scene) on
+    ``device``, and the call of ``_two_view`` on them."""
+    from akaze_tpu_torch.io.dataset import projected_sequence
+    from akaze_tpu_torch.pipeline import features_from_numpy
+    frames, _ = projected_sequence(np.random.default_rng(5))
+    f1, f2 = (features_from_numpy(f, device) for f in frames[:2])
+    return f1, f2, (500.0, 500.0, 320.0, 240.0, 2e-5)
+
+
+def _no_sync(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _close_ransac(gpu, cpu, tol_e=0.1):
+    """Card against CPU on the same sets: the bounds of
+    ``test_ransac_on_card_matches_cpu``."""
+    s = torch.sign((cpu.E * gpu.E.cpu()).sum())
+    assert float((gpu.E.cpu() * s - cpu.E).abs().max()) < tol_e
+    assert abs(int(gpu.num_inliers) - int(cpu.num_inliers)) <= 2
+    assert float((gpu.inliers.cpu() != cpu.inliers).float().mean()) <= 0.03
+
+
+@pytest.mark.cuda
+def test_two_view_programs_equal_eager(cuda):
+    """``_two_view`` as its two programs (match and putative points, then
+    RANSAC and triangulation) with the draw between them: captured equals
+    eager bit for bit, no host sync inside or between them, and the card
+    equals the CPU with the CPU's sets replayed."""
+    from akaze_tpu_torch.geometry.ransac import SetRecorder, make_key
+    from akaze_tpu_torch.slam import odometry
+    f1, f2, args = _two_view_case(cuda)
+    key = make_key(3)
+
+    def call(sampler=odometry.sets_from_key):
+        return odometry._two_view(key, f1, f2, *args, sampler=sampler)
+
+    want, _ = _replayed((odometry._putative, odometry._solve), call)
+    _no_sync(call)
+    rec = SetRecorder()
+    cpu = odometry._two_view(key, *_two_view_case("cpu")[:2], *args,
+                             sampler=rec)
+    gpu = call(rec.replay())
+    for a, b in zip(gpu[0], cpu[0]):
+        assert torch.equal(a.cpu(), b)
+    _close_ransac(gpu[1], cpu[1])
+    assert int(cpu[1].num_inliers) > 200
+    assert float((gpu[1].R.cpu() - cpu[1].R).abs().max()) < 0.02
+    assert float(gpu[1].t.cpu() @ cpu[1].t) > 0.99
+
+
+@pytest.mark.cuda
+def test_ransac_essential_program_equals_eager(cuda):
+    from akaze_tpu_torch.geometry import ransac
+    x1, x2, R, t = _two_view_problem(np.random.default_rng(3))
+    valid = torch.ones(x1.shape[0], dtype=torch.bool)
+    valid[150:] = False
+    sets = ransac.draw_minimal_sets(torch.Generator().manual_seed(0), valid,
+                                    512)
+    args = [a.to(cuda) for a in (x1, x2, valid)]
+
+    def call():
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        return ransac.ransac_essential(gen, *args, 5e-5)
+
+    _replayed(ransac._ransac_essential, call)
+    _no_sync(call)
+    gpu = ransac.ransac_essential(None, *args, 5e-5, sets=sets.to(cuda))
+    _close_ransac(gpu, ransac.ransac_essential(None, x1, x2, valid, 5e-5,
+                                               sets=sets))
+
+
+@pytest.mark.cuda
+def test_ransac_homography_program_equals_eager(cuda):
+    from akaze_tpu_torch.geometry import homography
+    from akaze_tpu_torch.geometry.ransac import draw_minimal_sets
+    x1, x2, out = homography_outlier_case(np.random.default_rng(42), 2000,
+                                          600)
+    args = [torch.from_numpy(a).to(cuda) for a in (x1, x2)] + [
+        torch.ones(2000, dtype=torch.bool, device=cuda)]
+
+    def call():
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        return homography.ransac_homography(gen, *args, 4.0)
+
+    want, _ = _replayed(homography._ransac_homography, call)
+    _no_sync(call)
+    assert int(want.inliers.cpu()[out].sum()) < 20
+    sets = draw_minimal_sets(torch.Generator().manual_seed(1),
+                             torch.ones(2000, dtype=torch.bool), 512, 4)
+    cpu = homography.ransac_homography(
+        None, torch.from_numpy(x1), torch.from_numpy(x2),
+        torch.ones(2000, dtype=torch.bool), 4.0, sets=sets)
+    gpu = homography.ransac_homography(None, *args, 4.0, sets=sets.to(cuda))
+    assert homography_distance(gpu.H.cpu(), cpu.H) <= HOMOGRAPHY_CARD_TOL
 
 
 @pytest.mark.cuda

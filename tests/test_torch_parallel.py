@@ -114,6 +114,22 @@ def test_make_mesh_follows_jax(tmesh8):
             tpar.make_mesh(2)                  # no card visible
 
 
+def test_public_names_follow_jax():
+    """The package's ``__version__`` and ``distributed.mesh_axes``, as the
+    JAX package's."""
+    import akaze_tpu
+    import akaze_tpu_torch
+    from akaze_tpu.parallel import distributed as jdist
+    from akaze_tpu_torch.parallel import distributed as tdist
+    assert akaze_tpu_torch.__version__ == akaze_tpu.__version__ == "0.2.0"
+    assert "__version__" in akaze_tpu_torch.__all__
+    for names in (("data",), ("host", "chip"), ("a", "b", "c")):
+        jmesh = jax.sharding.Mesh(
+            np.asarray(jax.devices()[:1]).reshape((1,) * len(names)), names)
+        tmesh = tpar.make_mesh(8, names, devices=["cpu"] * 8)
+        assert tdist.mesh_axes(tmesh) == jdist.mesh_axes(jmesh) == names
+
+
 def test_block_order_and_sums_follow_jax(jmesh8, thc):
     """Over ("chip", "host") JAX's tiled gather puts blocks chip-major; the
     port's does the same, and its sum runs chip first, then host."""

@@ -15,6 +15,7 @@ bounds ``tests/test_torch_slam.py`` states for these solvers).
 """
 
 import ast
+import contextlib
 from pathlib import Path
 
 import jax
@@ -30,10 +31,13 @@ from akaze_tpu.slam import posegraph as jpg
 from akaze_tpu.slam import system as jsys
 from akaze_tpu_torch import Akaze, AkazeConfig, programs
 from akaze_tpu_torch import pipeline as tpipe
+from akaze_tpu_torch.geometry import homography as thom
+from akaze_tpu_torch.geometry import ransac as transac
 from akaze_tpu_torch.ops import describe as k2
 from akaze_tpu_torch.ops import hamming as k4
 from akaze_tpu_torch.ops import sublevel as k1
 from akaze_tpu_torch.slam import ba as tba
+from akaze_tpu_torch.slam import odometry as todo
 from akaze_tpu_torch.slam import posegraph as tpg
 from akaze_tpu_torch.slam import system as tsys
 from test_slam import make_ba_problem
@@ -55,6 +59,14 @@ SITES = [
     ("akaze_tpu/slam/posegraph.py", "optimize_pose_graph",
      tpg.optimize_pose_graph),
     ("akaze_tpu/slam/ba.py", "bundle_adjust", tba.bundle_adjust),
+    # the two-view sites: the draw runs eagerly before each program, so
+    # the program is the solve on the drawn sets (and, for _two_view, the
+    # triangulation after it)
+    ("akaze_tpu/slam/odometry.py", "_two_view", todo._solve),
+    ("akaze_tpu/geometry/ransac.py", "ransac_essential",
+     transac._ransac_essential),
+    ("akaze_tpu/geometry/homography.py", "ransac_homography",
+     thom._ransac_homography),
 ]
 
 
@@ -173,6 +185,44 @@ def test_bundle_adjust_lam0_is_traced(lam0):
     assert tkey != key
 
 
+def test_two_view_scalars_are_traced():
+    """``fx``, ``fy``, ``cx``, ``cy`` and ``threshold`` are traced: their
+    values are no part of the two programs' keys, and the 0-d tensors a
+    program's input buffers hold give the numbers' results bit for bit.
+    ``_two_view`` is ``_putative``, the draw, then ``_solve``."""
+    from akaze_tpu_torch.geometry.ransac import make_key, sets_from_key
+    from akaze_tpu_torch.io.dataset import projected_sequence
+    frames, _ = projected_sequence(np.random.default_rng(5))
+    f1, f2 = (tpipe.features_from_numpy(f, "cpu") for f in frames[:2])
+    words = (f1.words, f1.valid, f1.x, f1.y, f2.words, f2.valid, f2.x, f2.y)
+    intr = (500.0, 500.0, 320.0, 240.0)
+    key, leaves, _, _ = todo._putative.key(*words, *intr)
+    assert [x for x in leaves if isinstance(x, float)] == list(intr)
+    assert todo._putative.key(*words, 400.0, 410.0, 300.0, 200.0)[0] == key
+    m, x1, x2, put = todo._putative(*words, *intr)
+    m_t, x1_t, x2_t, put_t = todo._putative(
+        *words, *(torch.tensor(v) for v in intr))
+    for a, b in zip((*m, x1, x2, put), (*m_t, x1_t, x2_t, put_t)):
+        assert torch.equal(a, b)
+    sets = sets_from_key(make_key(3), put, 512)
+    res = todo._solve(x1, x2, put, sets, 2e-5, num_hyps=512)
+    res_t = todo._solve(x1, x2, put, sets, torch.tensor(2e-5), num_hyps=512)
+    for a, b in zip(torch.utils._pytree.tree_leaves(res),
+                    torch.utils._pytree.tree_leaves(res_t)):
+        assert torch.equal(a, b)
+    skey, sleaves, statics, _ = todo._solve.key(x1, x2, put, sets, 2e-5,
+                                                num_hyps=512)
+    assert dict(statics) == {"num_hyps": 512}
+    assert [x for x in sleaves if isinstance(x, float)] == [2e-5]
+    assert todo._solve.key(x1, x2, put, sets, 1e-4, num_hyps=512)[0] == skey
+    whole = todo._two_view(make_key(3), f1, f2, *intr, 2e-5)
+    for a, b in zip(torch.utils._pytree.tree_leaves(whole),
+                    torch.utils._pytree.tree_leaves((m, *res))):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="sets of shape"):
+        todo._solve(x1, x2, put, sets[:100], 2e-5, num_hyps=512)
+
+
 def test_keys_follow_static_values_shapes_and_none():
     prog = tpg.optimize_pose_graph
     R, t = torch.eye(3).repeat(4, 1, 1), torch.zeros(4, 3)
@@ -264,3 +314,31 @@ def test_eager_context_and_device_check():
         programs._program_device("double", [x, torch.ones(1, device="meta")])
     with pytest.raises(ValueError):
         programs.jit(double.fn, static_argnames=("m",))
+
+
+@pytest.mark.parametrize("eager", [False, True])
+def test_traced_numbers_reach_the_function_as_tensors(eager):
+    """Every traced number reaches the function as a 0-d tensor of
+    ``torch.as_tensor``'s dtype for it, on the call's device, as a
+    captured call's input buffers hold it, on the CPU and under
+    ``eager()`` alike; static numbers, tensors and None pass as they are."""
+    seen = {}
+
+    @programs.jit(static_argnames=("n",))
+    def scaled(x, s, k, flag, none, n):
+        seen.update(s=s, k=k, flag=flag, none=none, n=n)
+        return x * s / n
+
+    x = torch.ones(3)
+    with programs.eager() if eager else contextlib.nullcontext():
+        out = scaled(x, 0.1, 7, True, None, n=3)
+    for name, dtype in (("s", torch.float32), ("k", torch.int64),
+                        ("flag", torch.bool)):
+        v = seen[name]
+        assert isinstance(v, torch.Tensor) and v.dim() == 0
+        assert v.dtype == dtype and v.device == x.device
+    assert seen["s"].item() == torch.tensor(0.1).item()
+    assert seen["k"].item() == 7 and seen["flag"].item() is True
+    assert seen["none"] is None and seen["n"] == 3
+    assert torch.equal(out, x * torch.tensor(0.1) / 3)
+    assert scaled.captures == 0 and not scaled.entries

@@ -490,6 +490,24 @@ def test_slice_on_projected_features_matches_jax(projected_runs):
                                atol=1e-3 * extent)
 
 
+def test_keyframe_ate_matches_jax(projected_runs):
+    """Absolute trajectory error (``io.ate_rmse``, similarity-aligned) of
+    each package's keyframe trajectory against the scene's true camera
+    centres at the keyframes' frames: the two within 1e-3 of the centres'
+    extent (the trajectory test's tolerance)."""
+    from akaze_tpu.io import ate_rmse as jate
+    from akaze_tpu_torch.io import ate_rmse as tate
+    js, ts, _, centres = projected_runs
+    idx = [k.index for k in js.vo.keyframes]
+    assert [k.index for k in ts.vo.keyframes] == idx and len(idx) >= 3
+    ate_j = jate(js.keyframe_trajectory(), centres[idx])
+    ate_t = tate(ts.keyframe_trajectory(), centres[idx])
+    extent = float(np.abs(centres).max())
+    print(f"keyframe ATE: JAX {ate_j:.6g}, port {ate_t:.6g} (extent "
+          f"{extent:.3g})")
+    assert np.isfinite(ate_t) and abs(ate_t - ate_j) <= 1e-3 * extent
+
+
 # --------------------------------------------------------------------------
 # checkpoints shared between the packages
 # --------------------------------------------------------------------------

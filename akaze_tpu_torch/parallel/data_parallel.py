@@ -8,6 +8,14 @@ images, one K2 launch) and ``match`` (one K4 launch).  No collective is
 needed; outputs stay on their shards, and ``gather_shards`` brings them
 together for callers and tests.
 
+The step is one compiled program (``_dp_step``, static ``plan``, ``mesh``
+and ``fixed``, the values JAX's ``jax.jit(local_step)`` closes over): one
+CUDA graph per key on a one-card mesh (``programs.mesh_route``; it makes
+no collective, so a mesh across processes is captured too when its local
+shards share a card).  JAX builds a new ``jax.jit(local_step)`` on every
+``make_dp_step`` call and so retraces every step; the port's keyed program
+replays a repeated step instead.
+
 ``batched_detect_and_compute`` is the port's ``detect_and_compute_batch``
 (one set of K1 launches and one K2 launch for B images), with the batch
 stacked into one ``Features`` as the JAX package's vmap gives it.  The
@@ -17,6 +25,7 @@ workaround and is not ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List
 
 import torch
@@ -25,6 +34,7 @@ from ..match import match
 from ..pipeline import (Features, _as_images, detect_and_compute_batch,
                         detect_and_compute_pair)
 from ..plan import PipelinePlan
+from ..programs import jit
 from . import collectives as col
 from .mesh import Mesh
 
@@ -43,25 +53,32 @@ def batched_detect_and_compute(images, plan: PipelinePlan,
                                                  device=device))
 
 
+@jit(static_argnames=("plan", "mesh", "fixed"))
+def _dp_step(a_shards: List[torch.Tensor], b_shards: List[torch.Tensor],
+             plan: PipelinePlan, mesh: Mesh, fixed: bool):
+    """Per local shard of ``mesh``, the pair program and the match of each
+    of its pairs, stacked: (features_a, features_b, matches), each a list
+    over the shards."""
+    out = []
+    for a, b in zip(a_shards, b_shards):
+        per_pair = []
+        for ia, ib in zip(a, b):
+            fa, fb = detect_and_compute_pair(ia, ib, plan, fixed=fixed)
+            m = match(fa.words, fa.valid, fb.words, fb.valid, fb.x, fb.y,
+                      plan.config.max_dist)
+            per_pair.append((fa, fb, m))
+        out.append(tuple(stack_tuples(list(f)) for f in zip(*per_pair)))
+    return tuple(list(f) for f in zip(*out))
+
+
 def make_dp_step(plan: PipelinePlan, mesh: Mesh, fixed: bool = False,
                  axis: str = "data") -> Callable:
     """The per-shard program of ``dp_pipeline_step``: a function of two
     lists (one [b, H, W] batch of image pairs' first and second images
     per local shard, each on its shard's device) that returns per shard
-    the stacked (features_a, features_b, matches) of its pairs."""
-    def step(a_shards: List[torch.Tensor], b_shards: List[torch.Tensor]):
-        out = []
-        for a, b in zip(a_shards, b_shards):
-            per_pair = []
-            for ia, ib in zip(a, b):
-                fa, fb = detect_and_compute_pair(ia, ib, plan, fixed=fixed)
-                m = match(fa.words, fa.valid, fb.words, fb.valid, fb.x,
-                          fb.y, plan.config.max_dist)
-                per_pair.append((fa, fb, m))
-            out.append(tuple(stack_tuples(list(f)) for f in zip(*per_pair)))
-        return tuple(list(f) for f in zip(*out))
-
-    return step
+    the stacked (features_a, features_b, matches) of its pairs; it calls
+    the program ``_dp_step`` with these statics."""
+    return functools.partial(_dp_step, plan=plan, mesh=mesh, fixed=fixed)
 
 
 def dp_pipeline_step(images_a, images_b, plan: PipelinePlan, mesh: Mesh,

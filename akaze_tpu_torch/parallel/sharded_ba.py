@@ -14,6 +14,13 @@ shards in a fixed order:
   observations on one shard (``partition_landmarks``), so V, b_p, W^T x
   and the back-substitution stay local and each CG step sums one [C, 6]
   quantity over the mesh, whatever the landmark count.
+
+Each is one compiled program (``_run_sharded_ba``,
+``_run_landmark_sharded_ba``; JAX's static arguments, ``lam0`` among
+them): one CUDA graph per key on a mesh whose shards share one card
+(``programs.mesh_route``).  The partition (``partition_landmarks``,
+``gather_points``) and the sharding of the inputs run on the host before
+the program, as JAX's partition does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from ..geometry.se3 import se3_compose, se3_exp
+from ..programs import jit
 from ..slam.ba import BAProblem, _obs_jacobians, ba_cost, schur_solve_shards
 from ..slam.linalg import one_hot
 from . import collectives as col
@@ -50,18 +58,22 @@ def _shard_problem(prob, mesh: Mesh, axis) -> list:
     return list(prob)
 
 
+def _gauge(R, fixed_cam_mask, home):
+    """``fixed_cam_mask`` on ``home``; by default camera 0 fixed (made
+    without an item assignment, which would copy from the host)."""
+    if fixed_cam_mask is None:
+        return torch.arange(R.shape[0], device=home) == 0
+    return fixed_cam_mask.to(home)
+
+
 def _lm(R, t, Xs, probs, mesh: Mesh, axis, fixed_cam_mask, n_pts, iters,
         cg_iters, lam0, local_points: bool):
     """The LM loop of ``slam.bundle_adjust`` over observation shards.
     ``Xs``: each shard's landmark block (the whole map, replicated, unless
-    ``local_points``)."""
-    home = mesh.home
-    R, t = R.to(home), t.to(home)
+    ``local_points``); R, t and ``fixed_cam_mask`` on the mesh's first
+    device."""
     n_cams = R.shape[0]
-    if fixed_cam_mask is None:
-        fixed_cam_mask = torch.zeros(n_cams, dtype=torch.bool, device=home)
-        fixed_cam_mask[0] = True
-    free = (~fixed_cam_mask.to(home)).to(R.dtype)[:, None]
+    free = (~fixed_cam_mask).to(R.dtype)[:, None]
     devs = [p.cam.device for p in probs]
     free_obs = [free.to(d)[p.cam.long()][:, None, :]
                 for d, p in zip(devs, probs)]
@@ -79,7 +91,7 @@ def _lm(R, t, Xs, probs, mesh: Mesh, axis, fixed_cam_mask, n_pts, iters,
         return cam_reduce([ba_cost(R.to(d), t.to(d), x, p)
                            for d, x, p in zip(devs, Xs, probs)])
 
-    lam = torch.full((), lam0, dtype=torch.float32, device=home)
+    lam = torch.full((), lam0, dtype=torch.float32, device=R.device)
     for _ in range(iters):
         Rs = [R.to(d) for d in devs]
         ts = [t.to(d) for d in devs]
@@ -113,10 +125,23 @@ def sharded_bundle_adjust(R, t, X, prob, mesh: Mesh, iters: int = 8,
     innermost-first hierarchy such as ``("chip", "host")``.  Returns
     (R, t, X, final_cost) on the mesh's first device."""
     axis = normalize_axes(axis)
-    probs = _shard_problem(prob, mesh, axis)
-    Xs = col.replicate(X, mesh)
-    R, t, Xs, c = _lm(R, t, Xs, probs, mesh, axis, fixed_cam_mask,
-                      X.shape[0], iters, cg_iters, lam0, local_points=False)
+    home = mesh.home
+    return _run_sharded_ba(R.to(home), t.to(home), X.to(home),
+                           _shard_problem(prob, mesh, axis),
+                           _gauge(R, fixed_cam_mask, home), mesh=mesh,
+                           iters=iters, cg_iters=cg_iters, lam0=lam0,
+                           axis=axis)
+
+
+@jit(static_argnames=("mesh", "iters", "cg_iters", "lam0", "axis"),
+     collective_axes=lambda statics: statics["axis"])
+def _run_sharded_ba(R, t, X, prob, fixed_cam_mask, *, mesh, iters,
+                    cg_iters, lam0, axis):
+    """``_lm`` over the observation shards ``prob`` with the map ``X``
+    replicated; everything else on the mesh's first device."""
+    R, t, Xs, c = _lm(R, t, col.replicate(X, mesh), prob, mesh, axis,
+                      fixed_cam_mask, X.shape[0], iters, cg_iters, lam0,
+                      local_points=False)
     return R, t, Xs[0].to(mesh.home), c
 
 
@@ -245,6 +270,18 @@ def landmark_sharded_bundle_adjust(R, t, X, part: LandmarkPartition,
         Xs = col.shard(X, mesh, axis)
     else:
         Xs = list(X)
-    probs = _shard_problem(part.prob, mesh, axis)
-    return _lm(R, t, Xs, probs, mesh, axis, fixed_cam_mask, None, iters,
+    home = mesh.home
+    return _run_landmark_sharded_ba(
+        R.to(home), t.to(home), Xs, _shard_problem(part.prob, mesh, axis),
+        _gauge(R, fixed_cam_mask, home), mesh=mesh, iters=iters,
+        cg_iters=cg_iters, lam0=lam0, axis=axis)
+
+
+@jit(static_argnames=("mesh", "iters", "cg_iters", "lam0", "axis"),
+     collective_axes=lambda statics: statics["axis"])
+def _run_landmark_sharded_ba(R, t, X, prob, fixed_cam_mask, *, mesh, iters,
+                             cg_iters, lam0, axis):
+    """``_lm`` over the landmark blocks ``X`` and their observations
+    ``prob``, one of each per local shard."""
+    return _lm(R, t, X, prob, mesh, axis, fixed_cam_mask, None, iters,
                cg_iters, lam0, local_points=True)

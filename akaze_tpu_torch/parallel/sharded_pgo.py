@@ -8,12 +8,18 @@ Each shard builds the derivative blocks of its own edges
 J^T J v, and the gradient J^T r the same way, in a fixed order
 (``collectives.psum_home``).  The robust losses need the GLOBAL median of
 the edge residual norms ([E] floats), so the norms are all-gathered.
+
+The solve is one compiled program (``_run_sharded_pgo``, JAX's static
+arguments: ``damping`` is static here, traced in the single-device
+``optimize_pose_graph``, as in the JAX package): one CUDA graph per key
+on a mesh whose shards share one card (``programs.mesh_route``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..programs import jit
 from ..slam.posegraph import PoseGraph, gauss_newton
 from . import collectives as col
 from .mesh import Mesh, axis_size, normalize_axes
@@ -61,12 +67,23 @@ def sharded_optimize_pose_graph(R, t, graph: PoseGraph, mesh: Mesh,
         graphs = [PoseGraph(*fs) for fs in zip(*parts)]
     else:
         graphs = list(graph)
-    R, t = R.to(home), t.to(home)
-    if fixed_mask is None:
-        fixed_mask = torch.zeros(R.shape[0], dtype=torch.bool, device=home)
-        fixed_mask[0] = True
+    if fixed_mask is None:          # (an item assignment would copy)
+        fixed_mask = torch.arange(R.shape[0], device=home) == 0
+    return _run_sharded_pgo(R.to(home), t.to(home), graphs,
+                            fixed_mask.to(home), mesh=mesh, iters=iters,
+                            cg_iters=cg_iters, damping=damping, axis=axis,
+                            robust=robust, robust_delta=robust_delta)
+
+
+@jit(static_argnames=("mesh", "iters", "cg_iters", "damping", "axis",
+                      "robust", "robust_delta"),
+     collective_axes=lambda statics: statics["axis"])
+def _run_sharded_pgo(R, t, graph, fixed_mask, *, mesh, iters, cg_iters,
+                     damping, axis, robust="none", robust_delta=2.0):
+    """The Gauss-Newton loop over ``graph``, one edge list per local
+    shard; R, t and ``fixed_mask`` on the mesh's first device."""
     return gauss_newton(
-        R, t, graphs, fixed_mask.to(home), iters, cg_iters, damping, robust,
+        R, t, graph, fixed_mask, iters, cg_iters, damping, robust,
         robust_delta,
         reduce=lambda xs: col.psum_home(xs, mesh, axis),
         gather=lambda xs: col.all_gather(xs, mesh, axis, home_only=True))

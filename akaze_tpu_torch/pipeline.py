@@ -5,8 +5,8 @@ pair: the scale space of all B images runs with the same K1 launches
 (13 per pair at 960x1280), detection runs per image, and one K2 launch
 describes every image's keypoints.  ``Akaze.match`` runs K4.  ``Akaze`` runs
 each of its calls as a compiled program (``programs.py``, the JAX
-package's ``_jit_*`` wrappers): one CUDA graph per static signature,
-shared between instances.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
+package's ``_jit_*`` wrappers, the row-sharded one with a mesh): one CUDA
+graph per static signature, shared between instances.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
 raise without a card), a tensor stays where it lies, and ``device="cpu"``
 runs every kernel's plain version instead.
 
@@ -162,6 +162,18 @@ def _jit_detect_and_compute(image, plan, fixed, describe):
     return detect_and_compute(image, plan, fixed=fixed, describe=describe)
 
 
+# Mesh is hashable, so the row-sharded program shares its graph across
+# Akaze instances exactly like the single-device program above; its
+# collectives run over the mesh's "data" axis (``programs.mesh_route``
+# decides from the mesh whether a key is captured)
+@jit(static_argnames=("plan", "mesh", "fixed", "describe"),
+     collective_axes=lambda statics: "data")
+def _jit_spatial_detect_and_compute(image, plan, mesh, fixed, describe):
+    from .parallel.spatial import spatial_detect_and_compute
+    return spatial_detect_and_compute(image, plan, mesh, fixed=fixed,
+                                      describe=describe)
+
+
 @jit(static_argnames=("plan", "fixed"))
 def _jit_detect_and_compute_pair(image_a, image_b, plan, fixed):
     return detect_and_compute_pair(image_a, image_b, plan, fixed=fixed)
@@ -245,10 +257,8 @@ class Akaze:
         x = _as_images(image, self.device, self.fixed)
         plan = self.plan_for(*x.shape)
         if self.sharded(*x.shape, describe):
-            from .parallel.spatial import spatial_detect_and_compute
-            return spatial_detect_and_compute(x, plan, self.mesh,
-                                              fixed=self.fixed,
-                                              describe=describe)
+            return _jit_spatial_detect_and_compute(x, plan, self.mesh,
+                                                   self.fixed, describe)
         if self.mesh is not None:
             self.spatial_fallbacks += 1
         return _jit_detect_and_compute(x, plan, self.fixed, describe)

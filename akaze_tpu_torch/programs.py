@@ -45,6 +45,24 @@ during the capture (whose launches never ran) is taken back and added to
 the counter on every replay instead: the counters count the card's
 launches, warm-up and replays alike.
 
+Meshes.  A static value may be a ``parallel.Mesh`` (hashable, as JAX's
+static ``mesh``); traced arguments may then be per-shard lists of
+tensors or of named tuples.  Such a key is decided once, from the key
+alone and before any capture is tried (``mesh_route``): it is captured
+only when the mesh's local shards and the traced tensors all lie on one
+CUDA device and no collective of the program crosses processes (the
+program's ``collective_axes``, of its static values, span no process
+axis: ``Mesh.spans_processes``; a program without collectives, such as
+the data-parallel step, passes whatever the mesh).  A key whose shards
+all lie on the CPU takes the CPU path below.  Every other key (a mesh
+over several cards, or a collective across processes) runs the function
+as it is, on every call: one graph cannot be tested to hold NCCL
+collectives or work spread over cards on one card, and NCCL refuses two
+ranks on one card.  ``stats()`` lists those keys with ``eager=True`` and
+their calls.  A key the rule captures and whose capture fails raises
+``ProgramError`` as any other; nothing is retried eagerly.  A key
+without a mesh whose tensors lie on several devices raises.
+
 On the CPU nothing is captured: a call whose tensors lie on the CPU (or
 that has no tensor) runs the function on its arguments.  ``eager()`` is
 the counterpart of ``jax.disable_jit()``: inside it every program runs
@@ -95,6 +113,7 @@ def clear() -> None:
     """Drop every captured graph and the devices' memory pools."""
     for p in _PROGRAMS:
         p.entries.clear()
+        p.eager_keys.clear()
     _POOLS.clear()
 
 
@@ -104,25 +123,64 @@ def programs() -> List["Program"]:
 
 
 def stats() -> list:
-    """Per captured key: the program, the key's tensor shapes, its replays,
-    the bytes its capture added to the device's pool and its warm-up and
-    capture seconds."""
-    return [dict(program=p.name, key=describe_key(k), replays=e.replays,
-                 pool_bytes=e.pool_bytes, warmup_s=e.warmup_s,
-                 capture_s=e.capture_s)
-            for p in _PROGRAMS for k, e in p.entries.items()]
+    """Per key: the program, the key's static values and tensor shapes,
+    ``eager`` (True for a key the mesh rule runs eagerly), its calls and
+    replays, the bytes its capture added to the device's pool and its
+    warm-up and capture seconds (0 for an eager key)."""
+    captured = [dict(program=p.name, key=describe_key(k), eager=False,
+                     calls=e.replays + 1, replays=e.replays,
+                     pool_bytes=e.pool_bytes, warmup_s=e.warmup_s,
+                     capture_s=e.capture_s)
+                for p in _PROGRAMS for k, e in p.entries.items()]
+    return captured + [dict(program=p.name, key=describe_key(k), eager=True,
+                            calls=n, replays=0, pool_bytes=0, warmup_s=0.0,
+                            capture_s=0.0)
+                       for p in _PROGRAMS for k, n in p.eager_keys.items()]
 
 
 def describe_key(key) -> str:
-    """A key in a line: static values (an object other than a number or a
-    string by its type and hash) and the traced leaves' shapes and types."""
+    """A key in a line: static values (a mesh by its repr, another object
+    than a number, a string or a tuple by its type and hash) and the
+    traced leaves' shapes and types."""
     statics, _, leaves = key
     shapes = [f"{tuple(x[1])}:{str(x[2]).replace('torch.', '')}"
               if x and x[0] == "tensor" else repr(x) for x in leaves]
-    return (", ".join(f"{k}={v!r}" if isinstance(v, (int, float, str))
+    return (", ".join(f"{k}={v!r}" if isinstance(v, (int, float, str, tuple))
+                      or _is_mesh(v)
                       else f"{k}={type(v).__name__}#{hash(v) & 0xffff:04x}"
                       for k, v in statics)
             + ("; " if statics else "") + " ".join(shapes))
+
+
+def _is_mesh(v) -> bool:
+    from .parallel.mesh import Mesh
+    return isinstance(v, Mesh)
+
+
+def _card(device: torch.device) -> torch.device:
+    """``device`` with the current card's index where a CUDA device names
+    none (``"cuda"``), as a tensor sent there reports it."""
+    if device.type != "cuda" or device.index is not None:
+        return device
+    return torch.device("cuda", torch.cuda.current_device()
+                        if torch.cuda.is_available() else 0)
+
+
+def mesh_route(mesh, devices, collective_axes) -> str:
+    """How a key whose static values hold ``mesh`` runs, decided from the
+    key alone: ``"capture"`` when the mesh's local shards and the traced
+    tensors' ``devices`` all lie on one CUDA device and no collective
+    crosses processes (``collective_axes``: the axes of the program's
+    collectives, None for a program without any); ``"cpu"`` when they
+    all lie on the CPU; else ``"eager"``."""
+    devs = {_card(torch.device(d))
+            for d in list(mesh.local_devices) + list(devices)}
+    if all(d.type == "cpu" for d in devs):
+        return "cpu"
+    crosses = (collective_axes is not None
+               and mesh.spans_processes(collective_axes))
+    one_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    return "capture" if one_card and not crosses else "eager"
 
 
 def _launch_counters():
@@ -217,9 +275,11 @@ class Program:
     docstring).  ``captures`` and ``replays`` count this program's
     captures and replays; ``entries`` maps each key to its graph."""
 
-    def __init__(self, fn, static_argnames=(), static_argnums=()):
+    def __init__(self, fn, static_argnames=(), static_argnums=(),
+                 collective_axes=None):
         functools.update_wrapper(self, fn)
         self.fn = fn
+        self.collective_axes = collective_axes
         self.name = f"{fn.__module__}.{fn.__qualname__}"
         self.static_argnames = tuple(static_argnames)
         self.static_argnums = tuple(static_argnums)
@@ -231,6 +291,7 @@ class Program:
         if unknown:
             raise ValueError(f"{self.name} has no argument {sorted(unknown)}")
         self.entries = {}
+        self.eager_keys = {}            # key -> calls, for mesh_route "eager"
         self.captures = 0
         self.replays = 0
         _PROGRAMS.append(self)
@@ -248,10 +309,31 @@ class Program:
         key = (statics, spec, tuple(_leaf_key(x) for x in leaves))
         return key, leaves, statics, spec
 
+    def route(self, *args, **kwargs) -> str:
+        """How this call runs, from its key alone: ``"capture"`` (a graph
+        per key on the card), ``"cpu"`` or, for a mesh the rule refuses,
+        ``"eager"`` (see the module's docstring)."""
+        key, leaves, statics, _ = self.key(*args, **kwargs)
+        return self._route(statics, leaves)[0]
+
+    def _route(self, statics, leaves):
+        """(route, the call's device)."""
+        mesh = next((v for _, v in statics if _is_mesh(v)), None)
+        if mesh is None:
+            device = _program_device(self.name, leaves)
+            return ("capture" if device.type == "cuda" else "cpu"), device
+        axes = (None if self.collective_axes is None
+                else self.collective_axes(dict(statics)))
+        devices = [x.device for x in leaves if isinstance(x, torch.Tensor)]
+        return (mesh_route(mesh, devices, axes),
+                _card(devices[0] if devices else mesh.home))
+
     def __call__(self, *args, **kwargs):
         key, leaves, statics, spec = self.key(*args, **kwargs)
-        device = _program_device(self.name, leaves)
-        if _EAGER or device.type != "cuda":
+        route, device = self._route(statics, leaves)
+        if route == "eager":
+            self.eager_keys[key] = self.eager_keys.get(key, 0) + 1
+        if _EAGER or route != "capture":
             return self._call(statics, spec,
                               [_scalar(x, device) for x in leaves])
         entry = self.entries.get(key)
@@ -306,10 +388,14 @@ class Program:
         return pytree.tree_unflatten(_fresh(warm), warm_spec)
 
 
-def jit(fn=None, *, static_argnames=(), static_argnums=()):
+def jit(fn=None, *, static_argnames=(), static_argnums=(),
+        collective_axes=None):
     """``Program(fn, ...)``, usable as ``@jit(static_argnames=(...))``,
-    as ``jax.jit`` under ``functools.partial``."""
+    as ``jax.jit`` under ``functools.partial``.  ``collective_axes``: for
+    a program over a mesh that makes collectives, a function of its static
+    values (a dict) giving their axes (see ``mesh_route``)."""
     if fn is None:
         return functools.partial(jit, static_argnames=static_argnames,
-                                 static_argnums=static_argnums)
-    return Program(fn, static_argnames, static_argnums)
+                                 static_argnums=static_argnums,
+                                 collective_axes=collective_axes)
+    return Program(fn, static_argnames, static_argnums, collective_axes)

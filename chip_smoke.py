@@ -125,9 +125,20 @@ any disagreement:
      between them) on every tracked and loop pair of the eager route, each
      equal bit for bit to its eager call, K4 equal to its plain version on
      every pair, no host sync inside or between the programs, each graph's
-     nodes, and a tracked pair's two-view eager and captured in turns.
-     Every phase above that calls ``Akaze``, ``SlamSystem`` or the solvers
-     drives the programs.
+     nodes, and a tracked pair's two-view eager and captured in turns;
+     ``[program mesh ...]``: the multi-device programs on meshes whose
+     shards share this card (the spatial program on a 960x1280 image over
+     2 and 4 shards and a 1920x2560 image over 8, the dp step, sharded
+     PGO, observation- and landmark-sharded BA) each held against the
+     eager card path as above, without a sync, timed eager and captured
+     in turns with each form's idle share; ``SlamSystem(mesh=4)`` on the
+     TUM route eagerly and with programs (keyframes and edges bit for bit,
+     no new key) and the CLI's ``--spatial 4`` eagerly and with programs
+     (no new key); each key's capture seconds and pool MiB, and the shared
+     pool after the mesh phases.  Every phase above that calls ``Akaze``,
+     ``SlamSystem``, the dp step or the solvers drives the programs; the
+     ``[mesh ...]`` phases hold each program's output against an eager
+     call whose kernel inputs they record (no Python runs in a replay).
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -914,14 +925,15 @@ def instrument(system):
     return log
 
 
-def tum_system(dev):
+def tum_system(dev, mesh=None):
     """The SLAM configuration of the TUM RGB-D cell: VO defaults
     (AkazeConfig(max_pts=4000), RANSAC threshold 2e-5, 512 hypotheses) and
-    SlamConfig defaults except local_ba_every=2."""
+    SlamConfig defaults except local_ba_every=2; on ``mesh`` when given."""
     from akaze_tpu_torch import AkazeConfig
     from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    place = dict(device=dev) if mesh is None else dict(mesh=mesh)
     return SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
-                      SlamConfig(local_ba_every=2), device=dev)
+                      SlamConfig(local_ba_every=2), **place)
 
 
 def loop_edges(system):
@@ -1707,7 +1719,7 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
     K2 against their plain versions on the shards' own inputs; the known
     shift recovered.  ``rows_for``: (n, flavour) whose kernels are
     profiled for the kernels line."""
-    from akaze_tpu_torch import Akaze
+    from akaze_tpu_torch import Akaze, programs
     from akaze_tpu_torch.parallel import (spatial, spatial_launches,
                                           spatial_route,
                                           spatial_scale_space)
@@ -1745,22 +1757,34 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
                               f"rel err {rel:.3g}")
                 print(f"[{tag}] scale space equal to the unsharded one: "
                       f"max rel err {worst:.3g} over every plane")
+            # the shards' kernel calls, recorded on an eager run (no
+            # Python runs in a replay); then the program (captured on its
+            # first image, replayed on the second) held against it
             for fn in counters().values():
                 fn.launches = 0
-            with no_plain_versions(), \
+            with programs.eager(), no_plain_versions(), \
                     recording(spatial, "sublevel") as tiled, \
                     recording(spatial, "octave") as resident, \
                     recording(k2mod, "_launch") as k2calls:
+                eager = det.detect_and_compute_pair(a, b)
+                torch.cuda.synchronize()
+            eager_n = launch_counts()
+            for fn in counters().values():
+                fn.launches = 0
+            with no_plain_versions():
                 fa, fb = det.detect_and_compute_pair(a, b)
                 m = det.match(fa, fb)
                 torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters().items()}
+            launches = launch_counts()
             per = spatial_launches(plan, n)
             want = {"tiled": 2 * n * per["tiled"],
                     "resident": 2 * n * per["resident"],
                     "describe": 2 * n, "hamming": 1}
             check(launches == want, f"[{tag}] launches {launches}, the "
                   f"route {spatial_route(plan, n)} predicts {want}")
+            check(eager_n == want | {"hamming": 0}, f"[{tag}] the eager "
+                  f"call launched {eager_n}")
+            equal_outputs(torch, (fa, fb), eager, tag)
             check(det.spatial_fallbacks == 0, f"[{tag}] fell back")
             dxy = max(compare_features(torch, fa, ra, tag, fixed)[0],
                       compare_features(torch, fb, rb, tag, fixed)[0])
@@ -1773,7 +1797,8 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
             out["times"][(name, n)] = cuda_times(
                 torch, lambda: det.detect_and_compute(at), reps=5)
             print(f"[{tag}] launches {launches} = the route's "
-                  f"{spatial_route(plan, n)}; features equal to the "
+                  f"{spatial_route(plan, n)}; the program's replay equal to "
+                  f"the eager call bit for bit; features equal to the "
                   f"unsharded path's (x/y within {dxy:.3g} px, 0 flipped "
                   f"bits), matches equal, shift recovered (inliers "
                   f"{inl:.4f}); K1 on {len(tiled)} halo-extended blocks "
@@ -1860,7 +1885,7 @@ def phase_mesh_dp(torch, dev, card):
     the per-pair path's; K1 13, K2 1, K4 1 launches per pair; K1, K2 and
     K4 against their plain versions on the step's own launches, with
     bounds from those inputs."""
-    from akaze_tpu_torch import Akaze, AkazeConfig, scale_space
+    from akaze_tpu_torch import Akaze, AkazeConfig, programs, scale_space
     from akaze_tpu_torch.ops import describe as k2mod
     from akaze_tpu_torch.ops import hamming as k4mod
     from akaze_tpu_torch.parallel import dp_pipeline_step, gather_shards
@@ -1873,20 +1898,29 @@ def phase_mesh_dp(torch, dev, card):
     plan = det.plan_for(H, W)
     mesh = cpu_mesh_of(4, dev)
     at, bt = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
-    for fn in counters().values():
-        fn.launches = 0
-    with no_plain_versions(), \
+    # the kernels' inputs, recorded on an eager step; then the program
+    with programs.eager(), no_plain_versions(), \
             recording(scale_space, "octave") as octaves, \
             recording(k2mod, "_launch") as k2calls, \
             recording(k4mod, "_launch") as k4calls:
+        eager = dp_pipeline_step(at, bt, plan, mesh)
+        torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions():
         out = dp_pipeline_step(at, bt, plan, mesh)
         torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
     want = {k: DP_PAIRS * v for k, v in MAIN_LAUNCHES.items()}
     check(launches == want, f"[mesh dp] launches {launches}")
+    equal_outputs(torch, out, eager, "mesh dp")
     k1c = check_k1_calls(torch, [], octaves, False, "mesh dp")
     k2c = check_k2_calls(torch, k2calls, "mesh dp")
     k4c = check_k4_calls(torch, k4calls, "mesh dp")
+    # the library yardstick on the step's own K4 inputs, summed per step
+    k4c["library_ms"] = sum(
+        k4_library_ms(torch, c[0], c[1], c[2], int(c[3]), int(c[4]))
+        for c, _ in k4calls)
     check(len(out[0]) == 4 and all(f.x.shape[0] == DP_PAIRS // 4
                                    for f in out[0]), "[mesh dp] shards")
     fa, fb, m = (gather_shards(x, dev) for x in out)
@@ -1904,11 +1938,13 @@ def phase_mesh_dp(torch, dev, card):
                                 "describe_kernel<__nv_bfloat16",
                                 "hamming_kernel"), reps=1)
     print(f"[mesh dp] {DP_PAIRS} pairs of {H}x{W} over 4 shards on one "
-          f"card: launches {launches}; every output equal to the per-pair "
+          f"card: launches {launches}; the program equal to the eager step "
+          f"bit for bit; every output equal to the per-pair "
           f"path's; K1 on {len(octaves)} octaves, K2 on {len(k2calls)} and "
           f"K4 on {len(k4calls)} launches = plain; step {spread(times)} "
-          f"({float(np.median(times)) / DP_PAIRS:.3f} ms per pair); card: "
-          f"{card}")
+          f"({float(np.median(times)) / DP_PAIRS:.3f} ms per pair); K4's "
+          f"library yardstick (_int_mm + topk on the step's {len(k4calls)} "
+          f"inputs) {k4c['library_ms']:.4f} ms per step; card: {card}")
     return dict(launches=launches, prof=prof, step_ms=float(np.median(times)),
                 k1=k1c, k2=k2c, k4=k4c)
 
@@ -2054,16 +2090,16 @@ def phase_mesh_slam(torch, dev, card, frames, single):
     sharded PGO and landmark-sharded local BA; keyframes and edges equal
     to the single-device card run's (``single``); poses compared as P7-2
     allows (printed: a plane under translation)."""
-    from akaze_tpu_torch import AkazeConfig
+    from akaze_tpu_torch import AkazeConfig, programs
     from akaze_tpu_torch.parallel import spatial_launches
     from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
     mesh = cpu_mesh_of(4, dev)
-    s = SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
-                   SlamConfig(local_ba_every=2), mesh=mesh)
+    s = tum_system(dev, mesh)
     log = instrument(s)
     plan = s.vo.akaze.plan_for(SLAM_H, SLAM_W)
     per = spatial_launches(plan, 4)
     ms = []
+    known = {(r["program"], r["key"]) for r in programs.stats()}
     for fn in counters().values():
         fn.launches = 0
     with no_plain_versions():
@@ -2091,6 +2127,14 @@ def phase_mesh_slam(torch, dev, card, frames, single):
           and any(c is not None for n, c in log
                   if n == "local_bundle_adjust"),
           "[mesh slam] no PGO or no local BA")
+    # the keys the route captured: PGO's edge buckets, and BA's landmark
+    # blocks, which partition_landmarks may size above the bucket
+    for r in programs.stats():
+        if (r["program"], r["key"]) not in known and "Mesh(" in r["key"]:
+            print(f"[mesh slam] the route captured "
+                  f"{r['program'].rsplit('.', 1)[1]} [{r['key'][:400]}]: "
+                  f"{r['calls']} calls, pool +{r['pool_bytes'] / 2**20:.1f} "
+                  f"MiB")
     a, b = s.keyframe_trajectory(), single.keyframe_trajectory()
     diff = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-9))
     print(f"[mesh slam] {len(frames)} frames over 4 shards: launches "
@@ -2106,10 +2150,12 @@ def phase_mesh_slam(torch, dev, card, frames, single):
     # frame over the frames after it
     from akaze_tpu_torch.ops import describe as k2mod
     from akaze_tpu_torch.parallel import spatial
+    first = s
     s = SlamSystem(Intrinsics(**TUM_INTR), AkazeConfig(max_pts=4000),
                    SlamConfig(local_ba_every=2), mesh=mesh)
     s.process(frames[0])
-    with no_plain_versions(), recording(spatial, "sublevel") as tiled, \
+    with programs.eager(), no_plain_versions(), \
+            recording(spatial, "sublevel") as tiled, \
             recording(spatial, "octave") as resident, \
             recording(k2mod, "_launch") as k2calls:
         s.process(frames[1])
@@ -2125,13 +2171,18 @@ def phase_mesh_slam(torch, dev, card, frames, single):
                 tiled=kernel_time(prof, "tiled_kernel<float>"),
                 resident=kernel_time(prof, "octave_kernel<float>"),
                 describe=kernel_time(prof, "describe_kernel<__nv_bfloat16"))
+    busy_ms = sum(v[0] for v in prof.values())
     print(f"[mesh slam] K1 on {len(tiled)} blocks and {len(resident)} "
           f"gathered octaves and K2 on {len(k2calls)} shard stacks of one "
           f"frame = plain; device per frame: K1 tiled "
           f"{rows['tiled'][0]:.4f} ms in {rows['tiled'][1]:.0f}, resident "
           f"{rows['resident'][0]:.4f} in {rows['resident'][1]:.0f}, K2 "
-          f"{rows['describe'][0]:.4f} in {rows['describe'][1]:.0f}")
-    return dict(launches=launches, frame_ms=float(np.median(ms)), rows=rows)
+          f"{rows['describe'][0]:.4f} in {rows['describe'][1]:.0f}; every "
+          f"device event {busy_ms:.3f} ms in "
+          f"{sum(v[1] for v in prof.values()):.0f} per frame (frames 3-5, "
+          f"programs replayed)")
+    return dict(launches=launches, frame_ms=float(np.median(ms)), rows=rows,
+                system=first)
 
 
 def phase_mesh_cli(torch, dev, card, raw_pair, expected):
@@ -2183,9 +2234,12 @@ def phase_mesh_dryrun(torch, dev):
     return out
 
 
-def mesh_rows(spatials, match, dp, slam, k1_rep, k2_rep, k4_rep):
+def mesh_rows(spatials, match, dp, slam, k1_rep, k1_b1_rep, k2_rep,
+              k4_rep):
     """The sharded paths' rows of the kernels line; ``spatials``: (name
-    suffix, ``phase_mesh_spatial`` result) per image size."""
+    suffix, ``phase_mesh_spatial`` result) per image size.  K1 runs at
+    B = 1 on every spatial shard (``k1_b1_rep``) and at B = 2 per pair in
+    the dp step (``k1_rep``)."""
     srcs = {"k1": "akaze_tpu_torch/csrc/sublevel.cu",
             "k2": "akaze_tpu_torch/csrc/describe.cu",
             "k4": "akaze_tpu_torch/csrc/hamming.cu"}
@@ -2206,7 +2260,8 @@ def mesh_rows(spatials, match, dp, slam, k1_rep, k2_rep, k4_rep):
                 continue
             bms, by = bound(nb, no)
             rows.append(dict(name=kind + sfx, source=srcs["k1"],
-                             replaces=k1_rep, launches=r["launches"][key],
+                             replaces=k1_b1_rep,
+                             launches=r["launches"][key],
                              max_abs_err=err, ms=r[key][0],
                              plain_ms=plain, bound_ms=bms, bound_by=by))
         bms, by = bound(k2["bytes"], 0)
@@ -2242,7 +2297,7 @@ def mesh_rows(spatials, match, dp, slam, k1_rep, k2_rep, k4_rep):
                      max_abs_err=k4["max_abs_err"],
                      ms=kernel_time(dp["prof"], "hamming_kernel")[0],
                      plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-                     bound_by=k4["bound_by"]))
+                     bound_by=k4["bound_by"], library_ms=k4["library_ms"]))
     return rows
 
 
@@ -2343,12 +2398,12 @@ def in_turns(torch, fn, reps):
     return eager, captured
 
 
-def busy(torch, fn, eager: bool):
+def busy(torch, fn, eager: bool, reps: int = PROFILE_REPS):
     """(device ms, device events) per call of ``fn``: the profiler's
     device events summed (one stream: they never overlap)."""
     from akaze_tpu_torch import programs
     with programs.eager() if eager else contextlib.nullcontext():
-        prof = device_kernels(torch, fn)
+        prof = device_kernels(torch, fn, reps)
     return sum(v[0] for v in prof.values()), sum(v[1] for v in prof.values())
 
 
@@ -2572,11 +2627,12 @@ def phase_program_solvers(torch, dev):
     return out
 
 
-def timed_route(torch, dev, frames):
-    """The TUM route on a new system: (system, tracked frame ms, keyframe
-    frame ms, PGO ms per call, BA ms per call), between CUDA events."""
+def timed_route(torch, dev, frames, mesh=None):
+    """The TUM route on a new system (on ``mesh`` when given): (system,
+    tracked frame ms, keyframe frame ms, PGO ms per call, BA ms per call),
+    between CUDA events."""
     from collections import defaultdict
-    s = tum_system(dev)
+    s = tum_system(dev, mesh)
     log = instrument(s)
     s.prof = defaultdict(float)
     tracked, keyf = [], []
@@ -2742,6 +2798,216 @@ def phase_program_two_view(torch, calls, card):
     return out
 
 
+def turns_and_idle(torch, fn, reps, profile_reps=PROFILE_REPS):
+    """``fn`` eager and captured in turns (``in_turns``) and each form's
+    device busy time against its wall (idle share)."""
+    eager, captured = in_turns(torch, fn, reps)
+    out = dict(eager_ms=float(np.median(eager)),
+               captured_ms=float(np.median(captured)),
+               eager_spread=spread(eager), captured_spread=spread(captured))
+    for kind in ("eager", "captured"):
+        ms, events = busy(torch, fn, kind == "eager", profile_reps)
+        out[f"{kind}_busy_ms"] = ms
+        out[f"{kind}_events"] = events
+        out[f"{kind}_idle"] = 1.0 - ms / out[f"{kind}_ms"]
+    return out
+
+
+def turns_line(r) -> str:
+    return (f"eager {r['eager_spread']}, captured {r['captured_spread']} "
+            f"(in turns); device busy eager {r['eager_busy_ms']:.3f} ms in "
+            f"{r['eager_events']:.0f} events (idle {r['eager_idle']:.3f}), "
+            f"captured {r['captured_busy_ms']:.3f} ms in "
+            f"{r['captured_events']:.0f} (idle {r['captured_idle']:.3f})")
+
+
+def phase_program_mesh(torch, dev, card, pairs, big, frames, slam_first,
+                       raw_pair, expected):
+    """The multi-device programs on meshes whose shards share this card,
+    each held against ``programs.eager()`` (``hold_program``: replays bit
+    for bit, the launch counters moved as the eager call moves them, no
+    plain version run), no host sync in a replay, timed eager and
+    captured in turns with the idle share of each, and each key's capture
+    seconds and pool MiB: the spatial program on a 960x1280 image over 2
+    and 4 shards and a 1920x2560 image over 8, the dp step (8 pairs, 4
+    shards), sharded PGO, observation- and landmark-sharded BA at the SLAM
+    cell's buckets; then ``SlamSystem(mesh=4)`` on the TUM route eagerly
+    and with programs (keyframes and edges equal bit for bit to the eager
+    run's and to ``[mesh slam]``'s, no new key) and the CLI with
+    ``--spatial 4`` eagerly and again with programs (no new key, counts
+    equal).  Returns the times."""
+    import io
+    from akaze_tpu_torch import Akaze, AkazeConfig, cli, pipeline, programs
+    from akaze_tpu_torch.io import save_pgm
+    from akaze_tpu_torch.parallel import (data_parallel, dp_pipeline_step,
+                                          gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          pad_edges, pad_observations,
+                                          partition_landmarks, sharded_ba,
+                                          sharded_bundle_adjust,
+                                          sharded_optimize_pose_graph,
+                                          sharded_pgo)
+    from akaze_tpu_torch.slam import SlamConfig
+    out = {}
+    sp = pipeline._jit_spatial_detect_and_compute
+    for (h, w), img, n, reps in (((H, W), pairs[0], 2, REPS // 2),
+                                 ((H, W), pairs[0], 4, REPS // 2),
+                                 ((BIG_H, BIG_W), big[0], 8, 5)):
+        tag = f"program mesh spatial {h}x{w} n={n}"
+        det = Akaze(AkazeConfig(max_pts=MAX_PTS), mesh=cpu_mesh_of(n, dev))
+        x = torch.as_tensor(img, device=dev)
+        f, launches = hold_program(torch, sp,
+                                   lambda: det.detect_and_compute(x), tag)
+        no_sync(torch, lambda: det.detect_and_compute(x), tag)
+        with no_plain_versions():
+            r = turns_and_idle(torch, lambda: det.detect_and_compute(x),
+                               reps)
+        out[f"spatial {h}x{w} n={n}"] = r
+        print(f"[{tag}] {int(f.count)} keypoints; captured = eager bit for "
+              f"bit (launches {launches}); no sync; per image "
+              f"{turns_line(r)}; card: {card}")
+
+    # every spatial key of the mesh phases (four flavours at 960x1280,
+    # two at 1920x2560) and this one
+    out["spatial keys"] = key_line(sp, "program mesh spatial")
+
+    # the dp step
+    tag = "program mesh dp"
+    dy, dx = SHIFT
+    tex = synthetic_texture(H + dy + DP_PAIRS, W + dx + DP_PAIRS, SEED + 31)
+    at = torch.as_tensor(np.stack([tex[i:i + H, i:i + W]
+                                   for i in range(DP_PAIRS)]), device=dev)
+    bt = torch.as_tensor(np.stack([tex[i + dy:i + dy + H, i + dx:i + dx + W]
+                                   for i in range(DP_PAIRS)]), device=dev)
+    plan = Akaze(AkazeConfig(max_pts=MAX_PTS), device=dev).plan_for(H, W)
+    mesh = cpu_mesh_of(4, dev)
+
+    def step():
+        return dp_pipeline_step(at, bt, plan, mesh)
+
+    _, launches = hold_program(torch, data_parallel._dp_step, step, tag,
+                               calls=2)
+    no_sync(torch, step, tag)
+    with no_plain_versions():
+        r = turns_and_idle(torch, step, 5, profile_reps=1)
+    r["keys"] = key_line(data_parallel._dp_step, tag)
+    out["dp"] = r
+    print(f"[{tag}] {DP_PAIRS} pairs over 4 shards: captured = eager bit "
+          f"for bit (launches {launches}); no sync; per step "
+          f"{turns_line(r)}; card: {card}")
+
+    # the solvers at the SLAM cell's buckets
+    cfg = SlamConfig()
+    (R0, t0, g), (Rc, tc, X0, prob) = slam_cell_problems(torch, dev)
+    kw = dict(iters=10, robust=cfg.robust, robust_delta=cfg.robust_delta)
+    n_cams, n_pts = Rc.shape[0], X0.shape[0]
+    mcap = prob.cam.shape[0]
+    part = partition_landmarks(prob, n_pts, 4,
+                               min_pts_per_shard=-(-n_pts // 4),
+                               min_obs_per_shard=-(-mcap // 4))
+    Xg = gather_points(part, X0).to(dev)
+    part = part._replace(prob=type(prob)(*(f.to(dev) for f in part.prob)))
+    Rc, tc, X0 = Rc.to(dev), tc.to(dev), X0.to(dev)
+    gprob = pad_observations(type(prob)(*(f.to(dev) for f in prob)), 4)
+    g4 = pad_edges(g, 4)
+    for name, prog, fn, reps in (
+            ("pgo", sharded_pgo._run_sharded_pgo,
+             lambda: sharded_optimize_pose_graph(R0, t0, g4, mesh, **kw), 3),
+            ("ba", sharded_ba._run_landmark_sharded_ba,
+             lambda: landmark_sharded_bundle_adjust(Rc, tc, Xg, part, mesh,
+                                                    iters=6), 5),
+            ("ba observations", sharded_ba._run_sharded_ba,
+             lambda: sharded_bundle_adjust(Rc, tc, X0, gprob, mesh,
+                                           iters=6), 3)):
+        tag = f"program mesh {name}"
+        _, launches = hold_program(torch, prog, fn, tag, calls=2)
+        no_sync(torch, fn, tag)
+        r = turns_and_idle(torch, fn, reps, profile_reps=1)
+        r["keys"] = key_line(prog, tag)
+        out[name] = r
+        print(f"[{tag}] 4 shards at the SLAM cell's buckets: captured = "
+              f"eager bit for bit; no sync; per call {turns_line(r)}; card: "
+              f"{card}")
+
+    # SlamSystem(mesh=4) on the TUM route: eagerly, then with programs
+    # (every key captured by [mesh slam]'s route)
+    tag = "program mesh slam"
+    with programs.eager(), no_plain_versions():
+        eager = timed_route(torch, dev, frames, mesh)
+    captures = sum(p.captures for p in programs.programs())
+    with no_plain_versions():
+        captured = timed_route(torch, dev, frames, mesh)
+    new = sum(p.captures for p in programs.programs()) - captures
+    check(same_map(eager[0], captured[0]),
+          f"[{tag}] the captured route differs from the eager one")
+    check(same_map(slam_first, captured[0]),
+          f"[{tag}] two captured routes differ")
+    check(new == 0, f"[{tag}] a repeated route captured {new} new keys")
+    mesh_keys = [s for s in programs.stats() if "Mesh(" in s["key"]]
+    per = {}
+    for s in mesh_keys:
+        name = s["program"].rsplit(".", 1)[1]
+        per[name] = per.get(name, 0) + 1
+    out["slam"] = dict(
+        eager=[float(np.median(eager[1])), float(np.median(eager[2])),
+               eager[3], eager[4]],
+        captured=[float(np.median(captured[1])),
+                  float(np.median(captured[2])), captured[3], captured[4]])
+    e, c = out["slam"]["eager"], out["slam"]["captured"]
+    print(f"[{tag}] {len(frames)} frames over 4 shards: keyframes and edges "
+          f"equal bit for bit to the eager run's and to [mesh slam]'s; no "
+          f"new capture; median tracked frame eager {e[0]:.3f} / captured "
+          f"{c[0]:.3f} ms; keyframe frame {e[1]:.3f} / {c[1]:.3f} ms; PGO "
+          f"per call {e[2]:.3f} / {c[2]:.3f} ms; local BA per call "
+          f"{e[3]:.3f} / {c[3]:.3f} ms (host wall per section); mesh keys "
+          f"after the route {per}; card: {card}")
+
+    # the CLI's --spatial 4, eagerly and again with programs
+    tag = "program mesh cli"
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lp, rp = os.path.join(tmp, "l.pgm"), os.path.join(tmp, "r.pgm")
+        save_pgm(lp, raw_pair[0])
+        save_pgm(rp, raw_pair[1])
+        argv = ["--left", lp, "--right", rp, "--json", "--iters",
+                str(CLI_ITERS), "--no-draw", "--spatial", "4", "--device",
+                str(dev)]
+        for kind in ("eager", "captured"):
+            captures = sum(p.captures for p in programs.programs())
+            buf = io.StringIO()
+            with (programs.eager() if kind == "eager"
+                  else contextlib.nullcontext()), \
+                    contextlib.redirect_stdout(buf), no_plain_versions():
+                cli.main(argv)
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+            counts = (rec["left_pts"], rec["right_pts"], rec["matches"])
+            check(counts == expected, f"[{tag}] {kind}: {rec}; the main "
+                  f"path gave {expected}")
+            new = sum(p.captures for p in programs.programs()) - captures
+            check(new == 0, f"[{tag}] {kind} run captured {new} new keys")
+            recs[kind] = rec
+    out["cli"] = {k: r["detect_pair_ms"] for k, r in recs.items()}
+    stats = programs.stats()
+    pool = sum(s["pool_bytes"] for s in stats) / 2**20
+    mesh_pool = sum(s["pool_bytes"] for s in mesh_keys) / 2**20
+    eager_keys = [s for s in stats if s["eager"]]
+    check(not eager_keys, f"[programs] keys run eagerly on one card: "
+          f"{eager_keys}")
+    out["pool_mib"] = pool
+    print(f"[{tag}] --spatial 4 --iters {CLI_ITERS}: detect_pair_ms eager "
+          f"{recs['eager']['detect_pair_ms']} / captured "
+          f"{recs['captured']['detect_pair_ms']}, match_ms "
+          f"{recs['captured']['match_ms']}, compile_s "
+          f"{recs['captured']['compile_s']}; counts equal to the main "
+          f"path's; no new key; card: {card}")
+    print(f"[programs] after the mesh phases: {len(stats)} keys, "
+          f"{len(mesh_keys)} of them on meshes (their captures added "
+          f"{mesh_pool:.1f} MiB), none run eagerly; the shared graph pool "
+          f"{pool:.1f} MiB; torch.cuda reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+    return out
+
+
 def k3_row_inputs(torch, dev, frame):
     """The single-image path's plan and one frame on the card."""
     from akaze_tpu_torch import Akaze, AkazeConfig
@@ -2903,6 +3169,11 @@ def main() -> int:
     print(f"[mesh] every sharded path passed in "
           f"{time.perf_counter() - t0:.1f} s; no kernel's plain version ran "
           f"on the card inside one")
+    t0 = time.perf_counter()
+    phase_program_mesh(torch, dev, card, (a, b), big_pairs()[False], frames,
+                       mesh_slam["system"], (a8, b8), pgm_counts)
+    print(f"[program mesh] every mesh program passed in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     k1_rep = "akaze_tpu/ops/pallas_sublevel.py:423"
     k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
@@ -2958,7 +3229,8 @@ def main() -> int:
     # the sharded paths' rows: per pair (spatial, 4 shards), per call
     # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards)
     mesh = mesh_rows([("", sp), (f"_{BIG_H}x{BIG_W}", big)], mesh_match, dp,
-                     mesh_slam["rows"], k1_rep, k2_rep, k4_rep)
+                     mesh_slam["rows"], k1_rep,
+                     "akaze_tpu/ops/pallas_sublevel.py:346", k2_rep, k4_rep)
     kernels = []
     for row in mesh:
         kernels.append(dict({"library_ms": None}, route="cuda", **row))

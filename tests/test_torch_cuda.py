@@ -18,6 +18,8 @@ device), and the fixed pipeline's keypoints, words and ``Matches`` against
 the CPU plain pipeline (PM_G2).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1785,3 +1787,213 @@ def test_capture_of_a_sync_raises(cuda):
         assert torch.equal(fine(x), x * 2 + 1)
     assert fine.captures == 1 and fine.replays == 2
     programs.clear()            # no graph of this test outlives it
+
+
+# --------------------------------------------------------------------------
+# the multi-device programs on meshes whose shards share this card:
+# captured = eager
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _no_item_assignment_on_the_card():
+    """Fail on any item assignment to a CUDA tensor inside the block (a
+    capture refuses the host-scalar copy it makes)."""
+    real = torch.Tensor.__setitem__
+    seen = []
+
+    def setitem(self, key, value):
+        if self.is_cuda:
+            seen.append(tuple(self.shape))
+        return real(self, key, value)
+
+    torch.Tensor.__setitem__ = setitem
+    try:
+        yield
+    finally:
+        torch.Tensor.__setitem__ = real
+    assert not seen, f"item assignments to card tensors {seen}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_spatial_program_equals_eager(cuda, fixed, n):
+    """``Akaze(mesh)`` on 480x640 over n card shards: the spatial program
+    captures once, replays bit for bit the eager call with its launches,
+    makes no host sync in a replay, and a second instance with an equal
+    mesh replays the same key."""
+    from akaze_tpu_torch import pipeline
+    h, w = 480, 640
+    img = texture(h, w, seed=3)
+    if fixed:
+        img = (img * 255).astype(np.uint8)
+    cfg = AkazeConfig(max_pts=4000)
+    det = Akaze(cfg, fixed=fixed, mesh=_card_mesh(cuda, n))
+    x = torch.as_tensor(img, device=det.device)
+    prog = pipeline._jit_spatial_detect_and_compute
+    want, _ = _replayed(prog, lambda: det.detect_and_compute(x))
+    assert int(want.count) > 200
+    _no_sync(lambda: det.detect_and_compute(x))
+    other = Akaze(cfg, fixed=fixed, mesh=_card_mesh(cuda, n))
+    captures = prog.captures
+    _assert_trees_equal(other.detect_and_compute(x), want)
+    assert prog.captures == captures and len(prog.entries) == 1
+    keypoints, _ = _replayed(prog, lambda: det.detect_and_compute(
+        x, describe=False))
+    assert not bool(keypoints.words.any())
+
+
+@pytest.mark.cuda
+def test_dp_program_equals_eager(cuda):
+    """The dp step over 2 card shards: one capture, each replay equal to
+    the eager step bit for bit (features and matches per shard) with its
+    launches, no host sync in a replay."""
+    from akaze_tpu_torch.parallel import data_parallel, dp_pipeline_step
+    a, b = pair()
+    imgs_a = torch.stack([torch.as_tensor(a)] * 2 + [torch.as_tensor(b)] * 2)
+    imgs_b = torch.stack([torch.as_tensor(b)] * 2 + [torch.as_tensor(a)] * 2)
+    imgs_a, imgs_b = imgs_a.to(cuda), imgs_b.to(cuda)
+    plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
+    mesh = _card_mesh(cuda, 2)
+
+    def step():
+        return dp_pipeline_step(imgs_a, imgs_b, plan, mesh)
+
+    want, got = _replayed(data_parallel._dp_step, step)
+    assert len(want[0]) == 2 and int(want[0][0].count[0]) > 100
+    _no_sync(step)
+
+
+@pytest.mark.cuda
+def test_sharded_solver_programs_equal_eager(cuda):
+    """Sharded PGO, observation-sharded BA and landmark-sharded BA over 4
+    card shards: each captures once and replays bit for bit the eager
+    call; no host sync in a replay; the default gauge masks are made
+    without an item assignment."""
+    from akaze_tpu_torch.parallel import (gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          pad_edges, pad_observations,
+                                          partition_landmarks, sharded_ba,
+                                          sharded_bundle_adjust,
+                                          sharded_optimize_pose_graph,
+                                          sharded_pgo)
+    from akaze_tpu_torch.slam.ba import BAProblem
+    from akaze_tpu_torch.slam.posegraph import PoseGraph
+    mesh = _card_mesh(cuda, 4)
+    R0, t0, graph, _ = _pose_graph(np.random.default_rng(4))
+    g = pad_edges(PoseGraph(*(a.to(cuda) for a in graph)), 4)
+    R0, t0 = R0.to(cuda), t0.to(cuda)
+
+    def pgo():
+        return sharded_optimize_pose_graph(R0, t0, g, mesh, iters=6,
+                                           robust="cauchy", robust_delta=10.0)
+
+    want, _ = _replayed(sharded_pgo._run_sharded_pgo, pgo)
+    assert float((want[0] - R0).abs().max()) > 1e-3
+    with _no_item_assignment_on_the_card():
+        _no_sync(pgo)
+
+    Rc, tc, X0, prob = _ba_problem(np.random.default_rng(6))
+    args = [a.to(cuda) for a in (Rc, tc, X0)]
+    gprob = pad_observations(BAProblem(*(a.to(cuda) for a in prob)), 4)
+
+    def ba():
+        return sharded_bundle_adjust(*args, gprob, mesh, iters=5)
+
+    _replayed(sharded_ba._run_sharded_ba, ba)
+    with _no_item_assignment_on_the_card():
+        _no_sync(ba)
+
+    part = partition_landmarks(prob, X0.shape[0], 4)
+    Xg = gather_points(part, X0).to(cuda)
+    # the partition on the card, so that a call copies nothing from the
+    # host
+    part = part._replace(prob=BAProblem(*(f.to(cuda) for f in part.prob)))
+
+    def lba():
+        return landmark_sharded_bundle_adjust(args[0], args[1], Xg, part,
+                                              mesh, iters=5)
+
+    want, _ = _replayed(sharded_ba._run_landmark_sharded_ba, lba)
+    assert len(want[2]) == 4 and bool(torch.isfinite(want[3]))
+    with _no_item_assignment_on_the_card():
+        _no_sync(lba)
+
+
+@pytest.mark.cuda
+def test_slam_system_mesh_programs_repeat(cuda):
+    """``SlamSystem(mesh=2 card shards)`` on the small image route run
+    eagerly and twice with programs: keyframes (frame indices, poses,
+    words) and edges equal bit for bit; the second route captures no new
+    key."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.io import synthetic_sequence
+    from akaze_tpu_torch.slam import Intrinsics, SlamConfig, SlamSystem
+    frames, _ = synthetic_sequence(np.random.default_rng(3), n_frames=9,
+                                   size=(160, 224),
+                                   shift_per_frame=(0.0, 10.0), n_blobs=300)
+    images = [frames[k].astype(np.float32) / 255.0 for k in (0, 4, 8, 7, 3)]
+    mesh = _card_mesh(cuda, 2)
+
+    def route():
+        s = SlamSystem(Intrinsics(fx=200.0, fy=200.0, cx=112.0, cy=80.0),
+                       AkazeConfig(max_pts=512, noctaves=2,
+                                   dthreshold=5e-5),
+                       SlamConfig(optimize_every=2, min_loop_gap=2,
+                                  loop_min_matches=25, loop_min_inliers=8,
+                                  loop_candidates=2, max_loops_per_kf=1,
+                                  local_ba_every=2, local_ba_window=3,
+                                  local_ba_points=64),
+                       min_inliers=6, keyframe_inlier_ratio=1.05, mesh=mesh)
+        for f in images:
+            s.process(f)
+        return s
+
+    programs.clear()
+    with programs.eager():
+        eager = route()
+    first = route()
+    captures = sum(p.captures for p in programs.programs())
+    second = route()
+    assert sum(p.captures for p in programs.programs()) == captures
+    names = {s["program"].rsplit(".", 1)[1] for s in programs.stats()}
+    assert "_jit_spatial_detect_and_compute" in names
+    assert not any(s["eager"] for s in programs.stats())
+    for run in (first, second):
+        assert ([k.index for k in run.vo.keyframes]
+                == [k.index for k in eager.vo.keyframes])
+        assert len(run.edges) == len(eager.edges)
+        for x, y in zip(run.edges, eager.edges):
+            assert x[:2] == y[:2] and np.array_equal(x[2], y[2])
+            assert np.array_equal(x[3], y[3]) and x[4] == y[4]
+        for x, y in zip(run.vo.keyframes, eager.vo.keyframes):
+            assert np.array_equal(x.R, y.R) and np.array_equal(x.t, y.t)
+            assert torch.equal(x.features.words, y.features.words)
+    assert len(eager.vo.keyframes) >= 2
+
+
+@pytest.mark.cuda
+def test_cli_spatial_twice_captures_nothing_new(cuda, tmp_path):
+    """The CLI's ``--spatial 2`` run twice in one process: equal counts,
+    and the second run captures no new key."""
+    import io
+    import json
+    from akaze_tpu_torch import cli, programs
+    from akaze_tpu_torch.io import save_pgm
+    paths = []
+    for name, img in zip(("l", "r"), raw_pair()):
+        paths.append(str(tmp_path / f"{name}.pgm"))
+        save_pgm(paths[-1], img)
+    dev = str(cuda) + ":0" if cuda.index is None else str(cuda)
+    recs, captures = [], []
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--left", paths[0], "--right", paths[1], "--json",
+                      "--iters", "2", "--max-pts", "2000", "--no-draw",
+                      "--spatial", "2", "--device", dev])
+        recs.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+        captures.append(sum(p.captures for p in programs.programs()))
+    assert captures[1] == captures[0]
+    for k in ("left_pts", "right_pts", "matches"):
+        assert recs[0][k] == recs[1][k] > 0, k

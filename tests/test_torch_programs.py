@@ -36,6 +36,10 @@ from akaze_tpu_torch.geometry import ransac as transac
 from akaze_tpu_torch.ops import describe as k2
 from akaze_tpu_torch.ops import hamming as k4
 from akaze_tpu_torch.ops import sublevel as k1
+from akaze_tpu_torch.parallel import data_parallel as tdp
+from akaze_tpu_torch.parallel import make_mesh
+from akaze_tpu_torch.parallel import sharded_ba as tsba
+from akaze_tpu_torch.parallel import sharded_pgo as tspgo
 from akaze_tpu_torch.slam import ba as tba
 from akaze_tpu_torch.slam import odometry as todo
 from akaze_tpu_torch.slam import posegraph as tpg
@@ -67,6 +71,15 @@ SITES = [
      transac._ransac_essential),
     ("akaze_tpu/geometry/homography.py", "ransac_homography",
      thom._ransac_homography),
+    # the multi-device sites: a Mesh among the static values
+    ("akaze_tpu/pipeline.py", "_jit_spatial_detect_and_compute",
+     tpipe._jit_spatial_detect_and_compute),
+    ("akaze_tpu/parallel/sharded_pgo.py", "_run_sharded_pgo",
+     tspgo._run_sharded_pgo),
+    ("akaze_tpu/parallel/sharded_ba.py", "_run_sharded_ba",
+     tsba._run_sharded_ba),
+    ("akaze_tpu/parallel/sharded_ba.py", "_run_landmark_sharded_ba",
+     tsba._run_landmark_sharded_ba),
 ]
 
 
@@ -342,3 +355,167 @@ def test_traced_numbers_reach_the_function_as_tensors(eager):
     assert seen["none"] is None and seen["n"] == 3
     assert torch.equal(out, x * torch.tensor(0.1) / 3)
     assert scaled.captures == 0 and not scaled.entries
+
+
+def test_dp_program_statics_are_make_dp_steps_closure():
+    """JAX's dp step is ``jax.jit(local_step)``, a closure of
+    ``make_dp_step``: its static values are the arguments of
+    ``make_dp_step`` that ``local_step`` reads (decorator included), less
+    the TPU knob ``match_pallas``, which is not ported.  The port's
+    program declares exactly those, and ``make_dp_step`` calls it."""
+    tree = ast.parse((ROOT / "akaze_tpu/parallel/data_parallel.py")
+                     .read_text())
+    outer = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                 and n.name == "make_dp_step")
+    params = {a.arg for a in outer.args.args}
+    inner = next(n for n in ast.walk(outer) if isinstance(n, ast.FunctionDef)
+                 and n.name == "local_step")
+    read = {n.id for n in ast.walk(inner) if isinstance(n, ast.Name)}
+    assert (params & read) - {"match_pallas"} == {"plan", "mesh", "fixed"}
+    prog = tdp._dp_step
+    assert isinstance(prog, programs.Program)
+    assert prog.static_argnames == ("plan", "mesh", "fixed")
+    assert prog.collective_axes is None
+    plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    step = tdp.make_dp_step(plan, mesh, fixed=True)
+    assert step.func is prog
+    assert step.keywords == dict(plan=plan, mesh=mesh, fixed=True)
+
+
+def _process_mesh(monkeypatch, n=4, device="cuda:0"):
+    """A mesh whose "data" axis spans two processes, built from device
+    names alone (torch.distributed answering as process 0 of 2)."""
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    return programs_mesh([device] * n, process_axis="data")
+
+
+def programs_mesh(devices, axis_names=("data",), process_axis=None):
+    from akaze_tpu_torch.parallel import Mesh
+    return Mesh(np.asarray(devices, dtype=object), axis_names,
+                process_axis=process_axis)
+
+
+def test_mesh_capture_rule(monkeypatch):
+    """The rule that decides, from a key alone, how a mesh program runs:
+    shards on one card are captured; shards on several cards, or a
+    collective across processes, run eagerly; CPU shards take the CPU
+    path.  A program without collectives (the dp step) is captured on a
+    process mesh whose local shards share a card."""
+    cuda0 = torch.device("cuda", 0)
+    route = programs.mesh_route
+    one_card = make_mesh(4, devices=["cuda:0"] * 4)
+    assert route(one_card, [cuda0], "data") == "capture"
+    assert route(one_card, [], ("data",)) == "capture"
+    assert route(one_card, [cuda0], None) == "capture"
+    two_cards = make_mesh(2, devices=["cuda:0", "cuda:1"])
+    assert route(two_cards, [cuda0], "data") == "eager"
+    assert route(two_cards, [cuda0], None) == "eager"
+    assert route(one_card, [torch.device("cuda", 1)], "data") == "eager"
+    assert route(one_card, [torch.device("cpu")], "data") == "eager"
+    cpu = make_mesh(8, devices=["cpu"] * 8)
+    assert route(cpu, [torch.device("cpu")], "data") == "cpu"
+    hier = programs_mesh(np.array(["cuda:0"] * 4).reshape(2, 2),
+                         axis_names=("chip", "host"))
+    assert route(hier, [cuda0], ("chip", "host")) == "capture"
+    spanning = _process_mesh(monkeypatch)
+    assert spanning.process_count == 2
+    assert spanning.spans_processes("data")
+    assert route(spanning, [cuda0], "data") == "eager"
+    assert route(spanning, [cuda0], None) == "capture"
+    assert route(_process_mesh(monkeypatch, device="cpu"), [],
+                 "data") == "cpu"
+    # the programs' own collective axes
+    plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
+    img = torch.zeros(64, 80)
+    sp = tpipe._jit_spatial_detect_and_compute
+    assert sp.collective_axes({}) == "data"
+    assert sp.route(img, plan, cpu, False, True) == "cpu"
+    assert sp.route(img, plan, one_card, False, True) == "eager"
+    assert tspgo._run_sharded_pgo.collective_axes({"axis": ("chip",)}) \
+        == ("chip",)
+
+
+def test_mesh_keys_follow_the_mesh():
+    """Equal meshes give one key (JAX's static ``mesh``), and other
+    meshes, shard counts or devices other keys."""
+    plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
+    img = torch.zeros(64, 80)
+    sp = tpipe._jit_spatial_detect_and_compute
+
+    def key(mesh):
+        return sp.key(img, plan, mesh, False, True)[0]
+
+    a = make_mesh(4, devices=["cuda:0"] * 4)
+    assert key(a) == key(make_mesh(4, devices=["cuda:0"] * 4))
+    assert hash(key(a)) == hash(key(make_mesh(4, devices=["cuda:0"] * 4)))
+    others = [key(make_mesh(2, devices=["cuda:0"] * 2)),
+              key(make_mesh(4, devices=["cpu"] * 4)),
+              key(make_mesh(4, devices=["cuda:1"] * 4)),
+              key(programs_mesh(["cuda:0"] * 4, axis_names=("rows",)))]
+    assert len(set(others + [key(a)])) == len(others) + 1
+    assert "Mesh({'data': 4}" in programs.describe_key(key(a))
+
+
+def test_mesh_keys_the_rule_refuses_run_eagerly_and_show_in_stats():
+    """A key whose mesh the rule runs eagerly calls the function as it
+    is on every call, captures nothing, and ``stats()`` lists it with
+    ``eager=True`` and its calls; ``clear()`` drops it."""
+    calls = []
+
+    @programs.jit(static_argnames=("mesh",),
+                  collective_axes=lambda statics: "data")
+    def shifted(xs, mesh):
+        calls.append(len(xs))
+        return [x + 1 for x in xs]
+
+    mesh = programs_mesh(["cpu", "meta"])
+    xs = [torch.ones(3), torch.zeros(2)]
+    assert shifted.route(xs, mesh) == "eager"
+    for _ in range(3):
+        out = shifted(xs, mesh)
+        assert torch.equal(out[0], xs[0] + 1)
+    assert calls == [2, 2, 2]
+    assert shifted.captures == 0 and not shifted.entries
+    rows = [r for r in programs.stats() if r["program"] == shifted.name]
+    assert len(rows) == 1 and rows[0]["eager"] and rows[0]["calls"] == 3
+    assert rows[0]["pool_bytes"] == 0 and "Mesh(" in rows[0]["key"]
+    cpu = make_mesh(2, devices=["cpu"] * 2)
+    assert shifted.route(xs, cpu) == "cpu"
+    shifted(xs, cpu)
+    assert len(shifted.eager_keys) == 1
+    programs.clear()
+    assert not shifted.eager_keys
+
+
+def test_mesh_programs_on_the_cpu_run_their_functions():
+    """On CPU shards each mesh program runs its function as it is:
+    sharded PGO and BA give what their functions give bit for bit, no key
+    is captured or marked eager, and a gauge mask made without an item
+    assignment pins pose 0 as the given one does."""
+    rng = np.random.default_rng(5)
+    R0, t0, graph, fixed = pose_graph_problem(rng)
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    g = tspgo.pad_edges(tpg.PoseGraph(*(t_(a) for a in graph)), 4)
+    kw = dict(iters=4, robust="cauchy", robust_delta=10.0)
+    got = tspgo.sharded_optimize_pose_graph(t_(R0), t_(t0), g, mesh, **kw)
+    pinned = torch.arange(R0.shape[0]) == 0
+    same = tspgo.sharded_optimize_pose_graph(t_(R0), t_(t0), g, mesh,
+                                             fixed_mask=pinned, **kw)
+    for a, b in zip(got, same):
+        assert torch.equal(a, b)
+    graphs = [tpg.PoseGraph(*fs) for fs in zip(
+        *(torch.chunk(f, 4) for f in g))]
+    want = tspgo._run_sharded_pgo.fn(
+        t_(R0), t_(t0), graphs, pinned, mesh=mesh, iters=4, cg_iters=50,
+        damping=1e-6, axis=("data",), robust="cauchy", robust_delta=10.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0][0], t_(R0)[0])
+    for p in (tspgo._run_sharded_pgo, tsba._run_sharded_ba,
+              tsba._run_landmark_sharded_ba,
+              tpipe._jit_spatial_detect_and_compute, tdp._dp_step):
+        assert not p.entries and not p.eager_keys and p.captures == 0

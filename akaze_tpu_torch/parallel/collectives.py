@@ -9,14 +9,21 @@ every shard.  A collective over ``axes`` joins the shards that differ
 only in those axes:
 
 * sums run in a fixed order, one axis at a time, innermost (first-listed)
-  axis first and each axis in index order, so that a run repeats bit for
-  bit and a one-process mesh sums as a multi-process one does;
+  axis first and each axis as a left fold in index order, so that a run
+  repeats bit for bit and a one-process mesh sums as a multi-process one
+  does;
 * gathers concatenate in block order (the first-listed axis major, as
   JAX's tiled ``all_gather`` over an axis tuple);
 * where an axis spans processes, the same helpers call
-  ``torch.distributed`` (``all_reduce``, ``all_gather`` and
-  ``batch_isend_irecv``) on the mesh's process group: ``gloo`` for CPU
-  tensors, ``nccl`` for CUDA tensors.
+  ``torch.distributed`` on the mesh's process group (``gloo`` for CPU
+  tensors, ``nccl`` for CUDA tensors): a sum or maximum over that axis
+  all-gathers every shard's operand (``all_gather_into_tensor``, in
+  process order) and every rank folds them in index order, never with
+  ``all_reduce``, whose order is the backend's; so every rank holds the
+  same bits, equal to the one-process mesh's.  Gathers use
+  ``all_gather_into_tensor`` too, and the halo exchange
+  ``batch_isend_irecv`` (on NCCL its waits are stream waits, so the ops
+  run inside a captured CUDA graph).
 
 ``traced()`` records every collective's name and per-shard operand size,
 so that tests can bound what crosses the mesh.
@@ -77,11 +84,13 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> list:
     return [x.to(d) for d in mesh.local_devices]
 
 
-def _all_reduce(x, op, mesh: Mesh):
-    y = x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX if op is torch.maximum
-                    else dist.ReduceOp.SUM, group=mesh.group)
-    return y
+def _gather_processes(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[process_count, *x.shape]: ``x`` (a stack of shards, [n, ...]) of
+    every process of the mesh's group, in process order."""
+    out = x.new_empty((mesh.process_count * x.shape[0],)
+                      + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    return out.view((mesh.process_count,) + tuple(x.shape))
 
 
 def _reduce(xs, mesh: Mesh, axes, op, name: str, home_only: bool):
@@ -92,15 +101,22 @@ def _reduce(xs, mesh: Mesh, axes, op, name: str, home_only: bool):
     parts = {tuple(c[a] for a in names): x for c, x in zip(coords, xs)}
     for a in axes:
         k = names.index(a)
-        merged = {}
+        groups = {}
         for key in sorted(parts):      # index order along ``a``
-            rest = key[:k] + (None,) + key[k + 1:]
-            x = parts[key]
-            merged[rest] = (x if rest not in merged
-                            else op(merged[rest], x.to(merged[rest].device)))
-        if a == mesh.process_axis and mesh.process_count > 1:
-            merged = {key: _all_reduce(merged[key], op, mesh)
-                      for key in sorted(merged)}
+            groups.setdefault(key[:k] + (None,) + key[k + 1:], []).append(
+                parts[key])
+        merged = {}
+        for rest in sorted(groups):
+            ys = groups[rest]
+            if a == mesh.process_axis and mesh.process_count > 1:
+                # every process's operands, in global index order
+                got = _gather_processes(torch.stack(
+                    [y.to(ys[0].device) for y in ys]), mesh)
+                ys = list(got.flatten(0, 1).unbind(0))
+            acc = ys[0]
+            for y in ys[1:]:
+                acc = op(acc, y.to(acc.device))
+            merged[rest] = acc
         parts = merged
     if home_only:
         return parts[_key(mesh, coords[0], axes)].to(mesh.home)
@@ -149,10 +165,9 @@ def all_gather(xs: List[torch.Tensor], mesh: Mesh, axes="data",
     if mesh.spans_processes(axes):
         for key in sorted({k for k, _ in blocks}):
             mine = _process_blocks(mesh, axes, key)
-            stack = torch.stack([blocks[(key, b)] for b in mine]).contiguous()
-            got = [torch.empty_like(stack)
-                   for _ in range(mesh.process_count)]
-            dist.all_gather(got, stack, group=mesh.group)
+            home = blocks[(key, mine[0])].device
+            got = _gather_processes(torch.stack(
+                [blocks[(key, b)].to(home) for b in mine]), mesh)
             for q, st in enumerate(got):
                 for b, t in zip(_process_blocks(mesh, axes, key, q), st):
                     blocks.setdefault((key, b), t)

@@ -14,6 +14,12 @@ which sets ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``::
     initialize_distributed()                     # -> True
 
 or pass ``init_method="tcp://host:port"``, ``world_size`` and ``rank``.
+Several processes on one host each take their own cards with
+``local_device_ids`` (one card each for NCCL)::
+
+    initialize_distributed("tcp://localhost:29500", 4, rank,
+                           local_device_ids=[rank])
+
 Single-process use needs no call: a (1, n) host/chip mesh or a purely
 local mesh runs the same programs.
 """
@@ -21,13 +27,14 @@ local mesh runs the same programs.
 from __future__ import annotations
 
 import os
+import socket
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import collectives as col
-from .mesh import Mesh, visible_devices
+from .mesh import Mesh, set_local_devices, visible_devices
 
 HOST_AXIS = "host"
 CHIP_AXIS = "chip"
@@ -38,7 +45,8 @@ HIER_AXES = (CHIP_AXIS, HOST_AXIS)
 def initialize_distributed(init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
                            rank: Optional[int] = None,
-                           backend: Optional[str] = None) -> bool:
+                           backend: Optional[str] = None,
+                           local_device_ids=None) -> bool:
     """Join the process group (idempotent).
 
     Arguments default from PyTorch's launcher environment
@@ -46,9 +54,22 @@ def initialize_distributed(init_method: Optional[str] = None,
     True when the process group is up, False when running single-process
     (nothing configured, or a world of one).  ``backend`` defaults to
     ``gloo`` for CPU tensors and, where a card is visible, ``nccl`` for
-    CUDA tensors."""
+    CUDA tensors.
+
+    ``local_device_ids`` (JAX's argument): the CUDA indices of the cards
+    this process owns.  ``visible_devices``, ``make_mesh`` and
+    ``make_host_chip_mesh`` then default to them, and the first becomes
+    the current card.  None keeps every visible card and the current one.
+    On a group whose CUDA backend is NCCL, which takes one rank per card,
+    ranks whose cards (their first owned card, or the current one) are one
+    physical card raise ``ValueError`` here, before any collective on the
+    card: launch one process per card with ``local_device_ids=[rank]``
+    (or one ``CUDA_VISIBLE_DEVICES`` card each)."""
     import torch.distributed as dist
 
+    if local_device_ids is not None:
+        set_local_devices(local_device_ids)
+        torch.cuda.set_device(visible_devices()[0])
     if dist.is_initialized():
         return True
     env = os.environ
@@ -66,7 +87,47 @@ def initialize_distributed(init_method: Optional[str] = None,
                    else "gloo")
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank)
+    if collective_backend(None) == "nccl":
+        _refuse_shared_cards()
     return True
+
+
+def collective_backend(group, device_type: str = "cuda") -> str:
+    """The backend ``group`` (None: the default group) runs collectives
+    of ``device_type`` tensors on, such as ``"nccl"`` or ``"gloo"``."""
+    import torch.distributed as dist
+
+    pairs = [p.split(":") for p in dist.get_backend_config(group).split(",")]
+    named = {p[0]: p[1] for p in pairs if len(p) == 2}
+    return named.get(device_type, pairs[0][-1])
+
+
+def _card_id(device: torch.device) -> str:
+    """One physical card: its host and its UUID (the same card under two
+    ``CUDA_VISIBLE_DEVICES`` orders has one id)."""
+    return (f"{socket.gethostname()}/"
+            f"{torch.cuda.get_device_properties(device).uuid}")
+
+
+def _refuse_shared_cards() -> None:
+    """Raise on every rank where two ranks of the NCCL group drive one
+    card (their first owned card, or the current one)."""
+    import torch.distributed as dist
+
+    mine = _card_id(torch.device("cuda", torch.cuda.current_device()))
+    ids = [None] * dist.get_world_size()
+    # over the CPU's backend: no NCCL call before the check
+    cpu = (None if collective_backend(None, "cpu") == "gloo"
+           else dist.new_group(backend="gloo"))
+    dist.all_gather_object(ids, mine, group=cpu)
+    first = {}
+    for r, c in enumerate(ids):
+        if c in first:
+            raise ValueError(
+                f"ranks {first[c]} and {r} both drive card {c}: NCCL takes "
+                f"one rank per card; pass local_device_ids=[rank] (or give "
+                f"each process its own CUDA_VISIBLE_DEVICES card)")
+        first[c] = r
 
 
 def make_host_chip_mesh(num_hosts: Optional[int] = None,

@@ -147,22 +147,39 @@ def split_shape(n: int, ndim: int) -> tuple:
     return tuple(shape)
 
 
+_LOCAL_DEVICES: Optional[tuple] = None    # set by set_local_devices
+
+
+def set_local_devices(ids) -> None:
+    """Make the cards ``ids`` (CUDA indices, JAX's ``local_device_ids``)
+    this process's devices: ``visible_devices`` and the meshes' defaults
+    then take them, in this order.  None: every visible card again."""
+    global _LOCAL_DEVICES
+    _LOCAL_DEVICES = (None if ids is None
+                      else tuple(torch.device("cuda", int(i)) for i in ids))
+
+
 def visible_devices() -> list:
-    """Every visible CUDA device (none without a card)."""
+    """This process's CUDA devices: the cards ``set_local_devices`` gave it
+    (``initialize_distributed(local_device_ids=...)``), else every visible
+    card (none without a card)."""
+    if _LOCAL_DEVICES is not None:
+        return list(_LOCAL_DEVICES)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(n_devices: Optional[int] = None,
               axis_names: Sequence[str] = ("data",),
               devices=None) -> Mesh:
-    """A mesh over the first ``n_devices`` devices: by default every
-    visible CUDA device (raises when fewer than ``n_devices`` are visible,
-    as JAX's does); ``devices`` lists them explicitly, repeats allowed
+    """A mesh over the first ``n_devices`` devices: by default this
+    process's cards (``visible_devices``; raises when fewer than
+    ``n_devices`` are there, as JAX's does); ``devices`` lists them
+    explicitly, repeats allowed
     (``["cuda:0"] * 4``, ``["cpu"] * 8``).
 
     With several axis names the count is split into powers of two as
     JAX's ``make_mesh`` splits it.  Under ``torch.distributed`` with
-    more than one process, ``devices`` (default: every visible card) are
+    more than one process, ``devices`` (default: ``visible_devices``) are
     this process's, and the first axis spans the processes: the mesh has
     ``world_size`` times as many shards."""
     import torch.distributed as dist

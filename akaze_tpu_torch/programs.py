@@ -49,17 +49,23 @@ Meshes.  A static value may be a ``parallel.Mesh`` (hashable, as JAX's
 static ``mesh``); traced arguments may then be per-shard lists of
 tensors or of named tuples.  Such a key is decided once, from the key
 alone and before any capture is tried (``mesh_route``): it is captured
-only when the mesh's local shards and the traced tensors all lie on one
-CUDA device and no collective of the program crosses processes (the
-program's ``collective_axes``, of its static values, span no process
-axis: ``Mesh.spans_processes``; a program without collectives, such as
-the data-parallel step, passes whatever the mesh).  A key whose shards
-all lie on the CPU takes the CPU path below.  Every other key (a mesh
-over several cards, or a collective across processes) runs the function
-as it is, on every call: one graph cannot be tested to hold NCCL
-collectives or work spread over cards on one card, and NCCL refuses two
-ranks on one card.  ``stats()`` lists those keys with ``eager=True`` and
-their calls.  A key the rule captures and whose capture fails raises
+when the mesh's local shards and the traced tensors all lie on one CUDA
+device and every collective of the program that crosses processes (the
+program's ``collective_axes``, of its static values, that span a process
+axis: ``Mesh.spans_processes``) runs on NCCL, the group's backend for
+CUDA tensors.  Each rank then captures one graph holding its kernels and
+the NCCL collectives and point-to-point ops; the eager warm-up before
+the capture brings up every communicator, and the ranks must call their
+programs in one order (as they must call collectives).  A program
+without collectives, such as the data-parallel step, passes whatever the
+mesh.  A key whose shards all lie on the CPU takes the CPU path below.
+Every other key runs the function as it is, on every call: collectives
+across processes on gloo (a host-side backend that no graph can hold),
+and a mesh over several cards in one process (``torch.cuda.graph`` takes
+its stream and memory pool from one device, and such a graph would have
+to span four).  ``stats()`` lists those keys with ``eager=True`` and
+their calls, and a captured key whose collectives cross processes with
+``nccl=True``.  A key the rule captures and whose capture fails raises
 ``ProgramError`` as any other; nothing is retried eagerly.  A key
 without a mesh whose tensors lie on several devices raises.
 
@@ -71,7 +77,12 @@ function sees every traced number as a 0-d tensor on the call's device
 (of ``torch.as_tensor``'s dtype for it, as the input buffers are), so
 that eager and captured calls run the same ops: CUDA divides by a
 Python number as a multiply by its reciprocal, by a tensor as a
-division.  ``clear()`` drops every graph (the counterpart of
+division; and on the card it sees every traced tensor contiguous, as
+the input buffers hold it (a matmul rounds otherwise on a transposed
+operand, such as the rotations ``se3_inverse`` returns, so an eager call
+on the caller's strides would differ from the graph, and a mesh over
+four cards, which runs eagerly, from one card's captured mesh).
+``clear()`` drops every graph (the counterpart of
 ``jax.clear_caches()``).  The cache lives in each ``Program``, at module
 level, so every caller of one program shares its graphs (``Akaze``
 instances with equal plans share one pair program).
@@ -124,16 +135,18 @@ def programs() -> List["Program"]:
 
 def stats() -> list:
     """Per key: the program, the key's static values and tensor shapes,
-    ``eager`` (True for a key the mesh rule runs eagerly), its calls and
+    ``eager`` (True for a key the mesh rule runs eagerly), ``nccl`` (True
+    for a key whose collectives cross processes on NCCL), its calls and
     replays, the bytes its capture added to the device's pool and its
     warm-up and capture seconds (0 for an eager key)."""
     captured = [dict(program=p.name, key=describe_key(k), eager=False,
-                     calls=e.replays + 1, replays=e.replays,
-                     pool_bytes=e.pool_bytes, warmup_s=e.warmup_s,
-                     capture_s=e.capture_s)
+                     nccl=p.crosses_on_nccl(k[0]), calls=e.replays + 1,
+                     replays=e.replays, pool_bytes=e.pool_bytes,
+                     warmup_s=e.warmup_s, capture_s=e.capture_s)
                 for p in _PROGRAMS for k, e in p.entries.items()]
     return captured + [dict(program=p.name, key=describe_key(k), eager=True,
-                            calls=n, replays=0, pool_bytes=0, warmup_s=0.0,
+                            nccl=p.crosses_on_nccl(k[0]), calls=n,
+                            replays=0, pool_bytes=0, warmup_s=0.0,
                             capture_s=0.0)
                        for p in _PROGRAMS for k, n in p.eager_keys.items()]
 
@@ -166,21 +179,30 @@ def _card(device: torch.device) -> torch.device:
                         if torch.cuda.is_available() else 0)
 
 
+def crossing_backend(mesh, collective_axes):
+    """The backend (``"nccl"``, ``"gloo"``) of the collectives over
+    ``collective_axes`` that cross processes (the mesh group's backend for
+    CUDA tensors), or None when none crosses."""
+    if collective_axes is None or not mesh.spans_processes(collective_axes):
+        return None
+    from .parallel.distributed import collective_backend
+    return collective_backend(mesh.group)
+
+
 def mesh_route(mesh, devices, collective_axes) -> str:
     """How a key whose static values hold ``mesh`` runs, decided from the
     key alone: ``"capture"`` when the mesh's local shards and the traced
-    tensors' ``devices`` all lie on one CUDA device and no collective
-    crosses processes (``collective_axes``: the axes of the program's
-    collectives, None for a program without any); ``"cpu"`` when they
-    all lie on the CPU; else ``"eager"``."""
+    tensors' ``devices`` all lie on one CUDA device and each collective
+    that crosses processes runs on NCCL (``collective_axes``: the axes of
+    the program's collectives, None for a program without any); ``"cpu"``
+    when they all lie on the CPU; else ``"eager"``."""
     devs = {_card(torch.device(d))
             for d in list(mesh.local_devices) + list(devices)}
     if all(d.type == "cpu" for d in devs):
         return "cpu"
-    crosses = (collective_axes is not None
-               and mesh.spans_processes(collective_axes))
     one_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
-    return "capture" if one_card and not crosses else "eager"
+    ok = crossing_backend(mesh, collective_axes) in (None, "nccl")
+    return "capture" if one_card and ok else "eager"
 
 
 def _launch_counters():
@@ -229,6 +251,15 @@ def _scalar(x, device):
         return torch.full((), x, dtype=torch.as_tensor(x).dtype,
                           device=device)
     return x
+
+
+def _eager_input(x, device):
+    """Leaf ``x`` as a call that is not captured hands it to the function:
+    as ``_buffer`` fills the input buffers on the card (a number as a 0-d
+    tensor, a tensor contiguous), and a tensor as it is on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous() if device.type == "cuda" else x
+    return _scalar(x, device)
 
 
 def _buffer(x, device):
@@ -316,14 +347,23 @@ class Program:
         key, leaves, statics, _ = self.key(*args, **kwargs)
         return self._route(statics, leaves)[0]
 
+    def _axes(self, statics):
+        """(the key's mesh or None, its collectives' axes or None)."""
+        mesh = next((v for _, v in statics if _is_mesh(v)), None)
+        return mesh, (None if mesh is None or self.collective_axes is None
+                      else self.collective_axes(dict(statics)))
+
+    def crosses_on_nccl(self, statics) -> bool:
+        """Whether a key's collectives cross processes on NCCL."""
+        mesh, axes = self._axes(statics)
+        return mesh is not None and crossing_backend(mesh, axes) == "nccl"
+
     def _route(self, statics, leaves):
         """(route, the call's device)."""
-        mesh = next((v for _, v in statics if _is_mesh(v)), None)
+        mesh, axes = self._axes(statics)
         if mesh is None:
             device = _program_device(self.name, leaves)
             return ("capture" if device.type == "cuda" else "cpu"), device
-        axes = (None if self.collective_axes is None
-                else self.collective_axes(dict(statics)))
         devices = [x.device for x in leaves if isinstance(x, torch.Tensor)]
         return (mesh_route(mesh, devices, axes),
                 _card(devices[0] if devices else mesh.home))
@@ -335,7 +375,7 @@ class Program:
             self.eager_keys[key] = self.eager_keys.get(key, 0) + 1
         if _EAGER or route != "capture":
             return self._call(statics, spec,
-                              [_scalar(x, device) for x in leaves])
+                              [_eager_input(x, device) for x in leaves])
         entry = self.entries.get(key)
         if entry is None:
             return self._capture(key, leaves, statics, spec, device)

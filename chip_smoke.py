@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``akaze_tpu_torch``) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port (``akaze_tpu_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py [--stock-dir DIR]
+    python3 chip_smoke.py [--stock-dir DIR]             # one card
+    python3 chip_smoke.py --cards 4 [--stock-dir DIR]   # four cards
 
 Phases, each of which fails the run (non-zero exit, no result line) on
 any disagreement:
@@ -139,6 +140,35 @@ any disagreement:
      ``SlamSystem``, the dp step or the solvers drives the programs; the
      ``[mesh ...]`` phases hold each program's output against an eager
      call whose kernel inputs they record (no Python runs in a replay).
+
+``--cards 4`` runs only the multi-device tier on four cards (and fails,
+never skips, with fewer): the card names and power limits, how the cards
+are joined (``nvidia-smi topo -m`` or NVLink's link states, peer access,
+a card-to-card copy rate); the kernels' build; then with one process over
+cuda:0..3 (``make_mesh(4)``; these keys run eagerly by
+``programs.mesh_route``'s rule) every mesh path held bit for bit against
+the same mesh with its four shards on cuda:0: the spatial tier on the
+960x1280 pair in all four flavours (the float flavour is the main path:
+launch counters reset before and read after, K1/K2 launches per card as
+``spatial_route`` predicts) and on a 1920x2560 pair, ``sharded_match`` at
+10000 x 10000, the dp step of 8 pairs (2 per card), sharded PGO and
+observation- and landmark-sharded BA at the SLAM cell's sizes,
+``SlamSystem(mesh=make_mesh(4))`` on the TUM route, the CLI with
+``--spatial 4 --device cuda``, ``dryrun_multichip(4)``; K1, K2 and K4
+against their plain versions on each card's own launches; each path's
+times with each card's idle share; the peak device memory per card of one
+image unsharded against row-sharded over four cards (1920x2560 and the
+largest size up to 3840x5120 the spatial tier takes); then four processes
+of one card each (this script with ``--worker``,
+``initialize_distributed(..., local_device_ids=[rank])``, NCCL): the
+spatial program, ``sharded_match``, ``dp_pipeline_step_multihost``,
+sharded PGO and both BAs, each equal on every rank bit for bit to the
+one-process mesh of the same shape, every key across processes captured
+with its NCCL calls (replays = eager, no host sync, no new key on a
+repeat), eager and captured times in turns with the idle share per rank.
+Its kernels line holds the four-card rows (``*_cards4``: per card per
+pair of the spatial main path; ``*_cards4_dp``: per card per dp step;
+``hamming_kernel_cards4_sharded_match``: per card per call).
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -3008,6 +3038,979 @@ def phase_program_mesh(torch, dev, card, pairs, big, frames, slam_first,
     return out
 
 
+# --------------------------------------------------------------------------
+# four cards (--cards 4): one process over cuda:0..3, and four processes of
+# one card each joined on NCCL
+# --------------------------------------------------------------------------
+
+CARDS = 4
+NCCL_TIMEOUT_S = 420     # a worker process's whole run
+MEM_MAX = (3840, 5120)   # the largest image the memory phase tries
+
+
+def sync_all(torch, cards):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def wall_times(torch, fn, cards, reps: int = 5, warmup: int = 1) -> list:
+    """``reps`` host times (ms) of one call of ``fn``, every card
+    synchronised before and after: the wall of work spread over cards."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        sync_all(torch, cards)
+        t0 = time.perf_counter()
+        fn()
+        sync_all(torch, cards)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def union_ns(spans) -> int:
+    """Length of the union of (start, end) intervals."""
+    total, last = 0, None
+    for a, b in sorted(spans):
+        if last is None or a > last:
+            total += b - a
+            last = b
+        elif b > last:
+            total += b - last
+            last = b
+    return total
+
+
+def profile_cards(torch, fn, reps: int = PROFILE_REPS, cards=None) -> dict:
+    """Per card index, per call of ``fn`` (``torch.profiler`` over ``reps``
+    calls): ``kernels`` {name: (device ms, launches)}, ``busy`` the ms
+    covered by the card's device events (the union of their intervals:
+    NCCL's kernels run beside the compute stream), ``compute`` the same
+    without NCCL's kernels, and ``nccl`` their summed ms.  ``cards``: the
+    cards to synchronise (default: every visible one)."""
+    from torch.profiler import ProfilerActivity, profile
+    cards = range(torch.cuda.device_count()) if cards is None else cards
+    fn()
+    sync_all(torch, cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync_all(torch, cards)
+    cuda = torch.autograd.DeviceType.CUDA
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        per.setdefault(e.device_index(), []).append(
+            (e.name(), e.start_ns(), e.end_ns(), e.duration_ns()))
+    out = {}
+    for c, evs in per.items():
+        kern = {}
+        for name, _, _, ns in evs:
+            t, n = kern.get(name, (0, 0))
+            kern[name] = (t + ns, n + 1)
+        nccl = [e for e in evs if "nccl" in e[0].lower()]
+        out[c] = dict(
+            kernels={k: (t / reps / 1e6, n / reps)
+                     for k, (t, n) in kern.items()},
+            busy=union_ns([(a, b) for _, a, b, _ in evs]) / reps / 1e6,
+            compute=union_ns([(a, b) for name, a, b, _ in evs
+                              if "nccl" not in name.lower()]) / reps / 1e6,
+            nccl=sum(e[3] for e in nccl) / reps / 1e6)
+    return out
+
+
+def idle_by_card(prof: dict, wall_ms: float, cards) -> list:
+    """Per card: 1 - the time its device events cover over the wall of
+    the call."""
+    return [1.0 - prof.get(c.index, {}).get("busy", 0.0) / wall_ms
+            for c in cards]
+
+
+@contextlib.contextmanager
+def launches_by_card():
+    """Count each kernel's launches per card (the card of the launch's
+    first tensor) for the eager calls inside: yields {card: {counter:
+    launches}}."""
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.ops import hamming as k4mod
+    from akaze_tpu_torch.ops import sublevel as k1mod
+    names = counters()
+    table = {}
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (k1mod, "_launch_sublevel"), (k1mod, "_launch_octave"),
+        (k2mod, "_launch"), (k4mod, "_launch"))]
+
+    def counted(real):
+        def launch(*a, **kw):
+            before = {k: fn.launches for k, fn in names.items()}
+            out = real(*a, **kw)
+            card = table.setdefault(str(a[0].device),
+                                    dict.fromkeys(names, 0))
+            for k, fn in names.items():
+                card[k] += fn.launches - before[k]
+            return out
+        return launch
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(fn))
+    try:
+        yield table
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def on_card(calls, c) -> list:
+    """The recorded calls whose first tensor lies on card ``c``."""
+    return [(a, kw) for a, kw in calls if a[0].device == c]
+
+
+def per_card_checks(torch, cards, tiled, resident, k2calls, k4calls, fixed,
+                    tag):
+    """K1, K2 and K4 against their plain versions on each card's own
+    recorded calls (with that card current, so that the plain versions'
+    CUDA events bracket its work): per card the errors, plain ms, bytes
+    and operations."""
+    out = []
+    for c in cards:
+        with torch.cuda.device(c):
+            r = {"k1": check_k1_calls(torch, on_card(tiled, c),
+                                      on_card(resident, c), fixed,
+                                      f"{tag} {c}")}
+            if k2calls is not None:
+                r["k2"] = check_k2_calls(torch, on_card(k2calls, c),
+                                         f"{tag} {c}")
+            mine = on_card(k4calls or [], c)
+            r["k4"] = (check_k4_calls(torch, mine, f"{tag} {c}")
+                       if mine else None)
+            if mine:
+                r["k4"]["library_ms"] = sum(
+                    k4_library_ms(torch, a[0], a[1], a[2], int(a[3]),
+                                  int(a[4])) for a, _ in mine)
+        out.append(r)
+    return out
+
+
+def phase_link(torch, cards):
+    """How the cards are joined: ``nvidia-smi topo -m`` where the machine
+    answers it, NVLink's state per link, peer access, and the copy rate
+    from card 0 to card 1 (256 MiB, median of 5 between CUDA events)."""
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    if topo.returncode == 0 and topo.stdout.strip():
+        print("[cards link] nvidia-smi topo -m:\n" + topo.stdout.rstrip())
+    else:
+        print(f"[cards link] nvidia-smi topo -m: exit {topo.returncode} "
+              f"({(topo.stdout + topo.stderr).strip()[:200]})")
+    nvl = subprocess.run(["nvidia-smi", "nvlink", "--status", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    links = [ln.strip() for ln in nvl.stdout.splitlines()
+             if "Link" in ln]
+    print(f"[cards link] nvidia-smi nvlink --status -i 0: exit "
+          f"{nvl.returncode}, {len(links)} links"
+          + (f": {links[0]} ..." if links else
+             f" ({(nvl.stdout + nvl.stderr).strip()[:200]})"))
+    peer = [torch.cuda.can_device_access_peer(cards[0], c)
+            for c in cards[1:]]
+    x = torch.empty(64 << 20, dtype=torch.float32, device=cards[0])
+    y = torch.empty_like(x, device=cards[1])
+    ms = cuda_ms(torch, lambda: y.copy_(x), reps=5)
+    rate = x.numel() * 4 / (ms / 1e3) / 1e9
+    print(f"[cards link] card 0 reaches cards 1-3 as a peer: {peer}; a 256 "
+          f"MiB copy card 0 -> card 1: {ms:.3f} ms = {rate:.1f} GB/s")
+    return dict(nvlink_links=len(links), peer=peer, copy_gb_s=rate)
+
+
+def card_ms(prof: dict, c, needles) -> float:
+    """Device ms per call on card ``c`` (a device or its index) of the
+    kernels whose names hold one of ``needles``."""
+    kernels = prof.get(getattr(c, "index", c), {}).get("kernels", {})
+    return sum(v[0] for k, v in kernels.items()
+               if any(n in k for n in needles))
+
+
+def one_card_mesh(cards):
+    """The four-shard mesh with every shard on the first card."""
+    from akaze_tpu_torch.parallel import make_mesh
+    return make_mesh(CARDS, devices=[cards[0]] * CARDS)
+
+
+def expect_by_card(cards, by_card, each, tag):
+    """Fail unless every card launched ``each`` (per counter named)."""
+    for c in cards:
+        got = by_card.get(str(c), {})
+        got = {k: got.get(k, 0) for k in each}
+        check(got == each, f"[{tag}] {c} launched {got}, want {each}")
+
+
+def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
+                        profile_flavour=None):
+    """The spatial tier over cuda:0..3 in one process (``Akaze(mesh=
+    make_mesh(4))``; eager, by ``programs.mesh_route``'s rule) on one pair
+    of ``size`` per flavour: features and matches bit for bit those of the
+    same mesh with its four shards on cuda:0; K1/K2 launches per card as
+    ``spatial_route`` predicts; K1 and K2 against their plain versions on
+    each card's own inputs; the known shift recovered; per image the
+    four-card and one-card times (wall, every card synchronised) and, for
+    ``profile_flavour``, each card's kernel times and idle share."""
+    from akaze_tpu_torch import Akaze, programs
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.parallel import (make_mesh, spatial,
+                                          spatial_launches, spatial_route)
+    h, w = size
+    out = {}
+    for name, (fixed, cfg) in flavours.items():
+        tag = f"cards spatial {h}x{w} {name}"
+        a, b = pairs[fixed]
+        one = Akaze(cfg, fixed=fixed, mesh=one_card_mesh(cards))
+        four = Akaze(cfg, fixed=fixed, mesh=make_mesh(CARDS))
+        check(four.mesh.local_devices == cards,
+              f"[{tag}] make_mesh(4) took {four.mesh.local_devices}")
+        want = one.detect_and_compute_pair(a, b)
+        wm = one.match(*want)
+        plan = four.plan_for(h, w)
+        per = spatial_launches(plan, CARDS)
+        for fn in counters().values():
+            fn.launches = 0
+        with no_plain_versions(), launches_by_card() as by_card, \
+                recording(spatial, "sublevel") as tiled, \
+                recording(spatial, "octave") as resident, \
+                recording(k2mod, "_launch") as k2calls:
+            got = four.detect_and_compute_pair(a, b)
+            m = four.match(*got)
+            sync_all(torch, cards)
+        launches = launch_counts()
+        # the match runs once, on the mesh's first card (a replay of the
+        # one-card mesh's match key: no Python runs to count it per card)
+        each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
+                "describe": 2}
+        expect_by_card(cards, by_card, each, tag)
+        check(launches == dict({k: CARDS * v for k, v in each.items()},
+                               hamming=1), f"[{tag}] launches {launches}")
+        check(four.spatial_fallbacks == 0, f"[{tag}] fell back")
+        equal_outputs(torch, (got, m), (want, wm), tag)
+        inl = (shift_recovered(torch, got[0], m, shift, tag)
+               if shift is not None else float("nan"))
+        checks = per_card_checks(torch, cards, tiled, resident, k2calls,
+                                 None, fixed, tag)
+        at = torch.as_tensor(a, device=cards[0])
+        t4 = wall_times(torch, lambda: four.detect_and_compute(at), cards)
+        t1 = wall_times(torch, lambda: one.detect_and_compute(at), cards)
+        with programs.eager():
+            t1e = wall_times(torch, lambda: one.detect_and_compute(at),
+                             cards)
+        r = dict(launches=by_card, checks=checks, four_ms=t4, one_ms=t1,
+                 one_eager_ms=t1e)
+        line = ""
+        if name == profile_flavour:
+            needle = "<int>" if fixed else "<float>"
+
+            def pair():
+                return four.match(*four.detect_and_compute_pair(a, b))
+
+            tp = wall_times(torch, pair, cards)
+            prof = profile_cards(torch, pair)
+            r.update(prof=prof, pair_ms=tp,
+                     idle=idle_by_card(prof, float(np.median(tp)), cards))
+            k1n = ("tiled_kernel" + needle, "octave_kernel" + needle)
+            line = ("; per pair " + spread(tp) + ", per card device K1 / K2 "
+                    "ms and idle share: " + ", ".join(
+                        f"{c} {card_ms(prof, c, k1n):.4f} / "
+                        f"{card_ms(prof, c, ('describe_kernel',)):.4f}, "
+                        f"{i:.3f}" for c, i in zip(cards, r["idle"])))
+        out[name] = r
+        print(f"[{tag}] over {', '.join(map(str, cards))} in one process: "
+              f"features and matches equal bit for bit to the same mesh on "
+              f"{cards[0]} alone; launches per card {by_card[str(cards[0])]} "
+              f"on {cards[0]}, {by_card[str(cards[1])]} on each other card "
+              f"= the route {spatial_route(plan, CARDS)}; K1 and K2 = plain "
+              f"on every card's inputs; shift recovered (inliers "
+              f"{inl:.4f}); per image four cards {spread(t4)} (eager), one "
+              f"card {spread(t1)} (captured), {spread(t1e)} (eager)"
+              f"{line}; cards: {card}")
+    return out
+
+
+def phase_cards_match(torch, cards, card):
+    """``sharded_match`` at 10000 x 10000 over cuda:0..3: ``Matches``
+    equal bit for bit to the one-card four-shard mesh's, one K4 launch per
+    card, K4 against its plain version on each card's inputs."""
+    from akaze_tpu_torch.ops import hamming as k4mod
+    from akaze_tpu_torch.parallel import (gather_shards, make_mesh,
+                                          sharded_match)
+    tag = "cards match"
+    w1, w2, v1, v2, x2, y2 = k4_stress_inputs(torch, cards[0])
+    four = make_mesh(CARDS)
+
+    def call(mesh=four):
+        return sharded_match(w1, v1, w2, v2, x2, y2, mesh, 96)
+
+    want = gather_shards(call(one_card_mesh(cards)), cards[0])
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions(), launches_by_card() as by_card, \
+            recording(k4mod, "_launch") as calls:
+        got = gather_shards(call(), cards[0])
+        sync_all(torch, cards)
+    expect_by_card(cards, by_card, {"tiled": 0, "resident": 0,
+                                    "describe": 0, "hamming": 1}, tag)
+    equal_outputs(torch, got, want, tag)
+    checks = per_card_checks(torch, cards, [], [], None, calls, False, tag)
+    t4 = wall_times(torch, call, cards)
+    prof = profile_cards(torch, call)
+    idle = idle_by_card(prof, float(np.median(t4)), cards)
+    ms = [card_ms(prof, c, ("hamming_kernel",)) for c in cards]
+    print(f"[{tag}] 10000 x 10000 over {CARDS} cards: Matches equal bit for "
+          f"bit to the one-card mesh's ({int((got.index >= 0).sum())} "
+          f"accepted); 1 K4 launch per card, each = plain; per call "
+          f"{spread(t4)}; K4 per card "
+          f"{', '.join(f'{x:.4f}' for x in ms)} ms, idle share "
+          f"{', '.join(f'{x:.3f}' for x in idle)}; cards: {card}")
+    return dict(launches=by_card, checks=checks, ms=ms, idle=idle,
+                call_ms=t4)
+
+
+def dp_inputs(torch, dev):
+    """The 8 pairs of the dp step at 960x1280 (each shifted by SHIFT)."""
+    dy, dx = SHIFT
+    tex = synthetic_texture(H + dy + DP_PAIRS, W + dx + DP_PAIRS, SEED + 31)
+    a = np.stack([tex[i:i + H, i:i + W] for i in range(DP_PAIRS)])
+    b = np.stack([tex[i + dy:i + dy + H, i + dx:i + dx + W]
+                  for i in range(DP_PAIRS)])
+    return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+
+def phase_cards_dp(torch, cards, card):
+    """``dp_pipeline_step``: 8 pairs of 960x1280 over cuda:0..3, two per
+    card; every output equal bit for bit to the one-card four-shard
+    mesh's; K1 13, K2 1, K4 1 launches per pair on each card; K1, K2 and
+    K4 against their plain versions on each card's launches."""
+    from akaze_tpu_torch import Akaze, AkazeConfig, scale_space
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.ops import hamming as k4mod
+    from akaze_tpu_torch.parallel import dp_pipeline_step, make_mesh
+    tag = "cards dp"
+    at, bt = dp_inputs(torch, cards[0])
+    plan = Akaze(AkazeConfig(max_pts=MAX_PTS), device=cards[0]).plan_for(H, W)
+    four = make_mesh(CARDS)
+    want = dp_pipeline_step(at, bt, plan, one_card_mesh(cards))
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions(), launches_by_card() as by_card, \
+            recording(scale_space, "octave") as octaves, \
+            recording(k2mod, "_launch") as k2calls, \
+            recording(k4mod, "_launch") as k4calls:
+        got = dp_pipeline_step(at, bt, plan, four)
+        sync_all(torch, cards)
+    pairs = DP_PAIRS // CARDS
+    expect_by_card(cards, by_card, {k: pairs * v for k, v in
+                                    MAIN_LAUNCHES.items()}, tag)
+    check([f.x.device for f in got[0]] == cards, f"[{tag}] shards")
+    equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(got)],
+                  pytree_leaves(want), tag)
+    checks = per_card_checks(torch, cards, [], octaves, k2calls, k4calls,
+                             False, tag)
+
+    def step():
+        return dp_pipeline_step(at, bt, plan, four)
+
+    t4 = wall_times(torch, step, cards, reps=3)
+    prof = profile_cards(torch, step, reps=1)
+    idle = idle_by_card(prof, float(np.median(t4)), cards)
+    print(f"[{tag}] {DP_PAIRS} pairs of {H}x{W} over {CARDS} cards, "
+          f"{pairs} per card: every output equal bit for bit to the "
+          f"one-card mesh's; launches per card {by_card[str(cards[0])]}; "
+          f"K1, K2 and K4 = plain on every card's launches; step "
+          f"{spread(t4)} (eager); idle share per card "
+          f"{', '.join(f'{x:.3f}' for x in idle)}; cards: {card}")
+    return dict(launches=by_card, checks=checks, prof=prof, idle=idle,
+                step_ms=t4)
+
+
+def pytree_leaves(x) -> list:
+    from torch.utils import _pytree as pytree
+    return pytree.tree_leaves(x)
+
+
+def solver_calls(torch, dev, mesh, hc):
+    """The SLAM cell's sharded solvers on ``mesh`` (PGO and
+    observation-sharded BA over ``data``) and ``hc`` (landmark-sharded BA
+    over ("chip", "host")), their inputs on ``dev``: {name: call}."""
+    from akaze_tpu_torch.parallel import (gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          pad_observations,
+                                          partition_landmarks,
+                                          sharded_bundle_adjust,
+                                          sharded_optimize_pose_graph)
+    from akaze_tpu_torch.slam import SlamConfig
+    cfg = SlamConfig()
+    (R0, t0, g), (Rc, tc, X0, prob) = slam_cell_problems(torch, dev)
+    n_pts, mcap = X0.shape[0], prob.cam.shape[0]
+    part = partition_landmarks(prob, n_pts, CARDS,
+                               min_pts_per_shard=-(-n_pts // CARDS),
+                               min_obs_per_shard=-(-mcap // CARDS))
+    Xg = gather_points(part, X0).to(dev)
+    part = part._replace(prob=type(prob)(*(f.to(dev) for f in part.prob)))
+    Rc, tc, X0 = Rc.to(dev), tc.to(dev), X0.to(dev)
+    gprob = pad_observations(type(prob)(*(f.to(dev) for f in prob)), CARDS)
+    kw = dict(iters=10, robust=cfg.robust, robust_delta=cfg.robust_delta)
+    return {
+        "pgo": lambda: sharded_optimize_pose_graph(R0, t0, g, mesh, **kw),
+        "ba observations": lambda: sharded_bundle_adjust(
+            Rc, tc, X0, gprob, mesh, iters=6),
+        "ba landmarks": lambda: landmark_sharded_bundle_adjust(
+            Rc, tc, Xg, part, hc, iters=6, axis=("chip", "host"))}
+
+
+def phase_cards_solvers(torch, cards, card):
+    """Sharded PGO (16 poses, 32 edge slots, the SLAM cell's robust loss)
+    and observation- and landmark-sharded BA (5 cameras, 512 points) over
+    cuda:0..3: every output equal bit for bit to the one-card four-shard
+    mesh's; times per call (eager) against the one card's (captured)."""
+    from akaze_tpu_torch.parallel import make_host_chip_mesh, make_mesh
+    one = one_card_mesh(cards)
+    ones = solver_calls(torch, cards[0], one,
+                        make_host_chip_mesh(CARDS, 1, devices=[cards[0]]
+                                            * CARDS))
+    fours = solver_calls(torch, cards[0], make_mesh(CARDS),
+                         make_host_chip_mesh(CARDS, 1))
+    out = {}
+    for name, fn in fours.items():
+        tag = f"cards {name}"
+        want = ones[name]()
+        with no_plain_versions():
+            got = fn()
+        sync_all(torch, cards)
+        equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(got)],
+                      pytree_leaves(want), tag)
+        t4 = wall_times(torch, fn, cards, reps=3)
+        t1 = wall_times(torch, ones[name], cards, reps=3)
+        prof = profile_cards(torch, fn, reps=1)
+        idle = idle_by_card(prof, float(np.median(t4)), cards)
+        out[name] = dict(four_ms=t4, one_ms=t1, idle=idle)
+        print(f"[{tag}] over {CARDS} cards: every output equal bit for bit "
+              f"to the one-card mesh's; per call {spread(t4)} (eager), one "
+              f"card {spread(t1)} (captured); idle share per card "
+              f"{', '.join(f'{x:.3f}' for x in idle)}; cards: {card}")
+    return out
+
+
+def phase_cards_slam(torch, cards, card, frames):
+    """``SlamSystem(mesh=make_mesh(4))`` on the TUM RGB-D route over
+    cuda:0..3: keyframes (indices, poses, words) and edges equal bit for
+    bit to the same route on the one-card four-shard mesh; K1 and K2 on
+    every card on every frame; frame times side by side."""
+    from akaze_tpu_torch.parallel import make_mesh
+    tag = "cards slam"
+    one = timed_route(torch, cards[0], frames, one_card_mesh(cards))
+    with no_plain_versions(), launches_by_card() as by_card:
+        four = timed_route(torch, cards[0], frames, make_mesh(CARDS))
+    check(same_map(four[0], one[0]), f"[{tag}] the four-card route differs "
+          f"from the one-card mesh's")
+    for c in cards:
+        n = by_card.get(str(c), {})
+        check(n.get("tiled", 0) > 0 and n.get("describe", 0) == len(frames),
+              f"[{tag}] {c} launched {n}")
+    e, c1 = four, one
+    print(f"[{tag}] {len(frames)} frames over {CARDS} cards: keyframes and "
+          f"edges equal bit for bit to the one-card mesh's; launches per "
+          f"card {by_card}; median tracked frame {np.median(e[1]):.3f} ms "
+          f"(one card captured {np.median(c1[1]):.3f}), keyframe frame "
+          f"{np.median(e[2]):.3f} / {np.median(c1[2]):.3f} ms, PGO per call "
+          f"{e[3]:.3f} / {c1[3]:.3f} ms, local BA {e[4]:.3f} / {c1[4]:.3f} "
+          f"ms; cards: {card}")
+    return dict(tracked_ms=float(np.median(e[1])),
+                one_tracked_ms=float(np.median(c1[1])))
+
+
+def phase_cards_cli(torch, cards, card, raw_pair):
+    """The CLI as a user runs it over four cards: ``--spatial 4 --device
+    cuda`` (the first four cards) in this process, its counts equal to
+    ``--spatial 4 --device cuda:0``'s, K1 and K2 launched on every
+    card."""
+    import io
+    from akaze_tpu_torch import cli
+    from akaze_tpu_torch.io import save_pgm
+    tag = "cards cli"
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lp, rp = os.path.join(tmp, "l.pgm"), os.path.join(tmp, "r.pgm")
+        save_pgm(lp, raw_pair[0])
+        save_pgm(rp, raw_pair[1])
+        for dev in ("cuda", str(cards[0])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), no_plain_versions(), \
+                    launches_by_card() as by_card:
+                cli.main(["--left", lp, "--right", rp, "--json", "--iters",
+                          "2", "--no-draw", "--spatial", str(CARDS),
+                          "--device", dev])
+            sync_all(torch, cards)
+            recs[dev] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                         {k: v["describe"] for k, v in by_card.items()})
+    (four, n4), (one, _) = recs["cuda"], recs[str(cards[0])]
+    counts = [(r["left_pts"], r["right_pts"], r["matches"])
+              for r in (four, one)]
+    check(counts[0] == counts[1] and counts[0][2] > 500,
+          f"[{tag}] counts {counts[0]} over four cards, {counts[1]} on one")
+    check(sorted(n4) == sorted(map(str, cards)) and len(set(n4.values()))
+          == 1, f"[{tag}] K2 launches per card {n4}")
+    print(f"[{tag}] --spatial {CARDS} --device cuda: {json.dumps(four)}; "
+          f"counts equal to --device {cards[0]}'s {counts[1]}; K2 launches "
+          f"per card {n4}; detect_pair_ms {four['detect_pair_ms']} (four "
+          f"cards, eager) / {one['detect_pair_ms']} (one card, captured); "
+          f"cards: {card}")
+    return dict(four=four, one=one)
+
+
+def phase_cards_dryrun(torch, cards):
+    """``dryrun_multichip(4)`` with its default devices (the first four
+    cards) equal to the same run with four shards on cuda:0."""
+    from akaze_tpu_torch.parallel import dryrun_multichip
+    with no_plain_versions():
+        four = dryrun_multichip(CARDS)
+        one = dryrun_multichip(CARDS, devices=[cards[0]] * CARDS)
+    check(four == one, f"[cards dryrun] four cards {four}, one card {one}")
+    print(f"[cards dryrun] dryrun_multichip({CARDS}) over the first four "
+          f"cards equal to four shards on {cards[0]}: {four}")
+    return four
+
+
+def phase_cards_memory(torch, cards, card):
+    """Peak device memory per card of one image (float, max_pts=10000, the
+    kernel path, eager so that no graph pool counts): unsharded on card 0
+    against row-sharded over the four cards, at 1920x2560 and at the
+    largest size up to 3840x5120 that ``spatial_supported`` takes over
+    four shards (2x2 tiles of the 1920x2560 texture: the working set
+    follows the shape, not the content).  Per card the peak of
+    ``max_memory_allocated`` above what was allocated before the call."""
+    from akaze_tpu_torch import Akaze, AkazeConfig, programs
+    from akaze_tpu_torch.parallel import make_mesh, spatial_supported
+    cfg = AkazeConfig(max_pts=MAX_PTS)
+    single = Akaze(cfg, device=cards[0])
+    four = Akaze(cfg, mesh=make_mesh(CARDS))
+    sizes = [(BIG_H, BIG_W)]
+    for h in range(MEM_MAX[0], BIG_H, -64):
+        w = h * 4 // 3
+        ok, _ = spatial_supported(four.plan_for(h, w), CARDS, detect=True,
+                                  describe=True)
+        if ok:
+            sizes.append((h, w))
+            break
+    tex = big_pairs()[False][0]
+    out = {}
+
+    def peaks(fn):
+        sync_all(torch, cards)
+        torch.cuda.empty_cache()
+        base = [torch.cuda.memory_allocated(c) for c in cards]
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        fn()
+        sync_all(torch, cards)
+        return [(torch.cuda.max_memory_allocated(c) - b) / 2**20
+                for c, b in zip(cards, base)]
+
+    for h, w in sizes:
+        img = torch.as_tensor(np.tile(tex, (2, 2))[:h, :w].copy()
+                              if h > BIG_H else tex, device=cards[0])
+        with programs.eager(), no_plain_versions():
+            single.detect_and_compute(img)
+            four.detect_and_compute(img)
+            m1 = peaks(lambda: single.detect_and_compute(img))
+            m4 = peaks(lambda: four.detect_and_compute(img))
+        out[f"{h}x{w}"] = dict(unsharded_mib=m1[0], sharded_mib=m4)
+        print(f"[cards memory] {h}x{w}: peak above the resident set, "
+              f"unsharded on {cards[0]} {m1[0]:.1f} MiB; row-sharded over "
+              f"{CARDS} cards {', '.join(f'{x:.1f}' for x in m4)} MiB "
+              f"(cards 0-3; card 0 also holds the gathered features); "
+              f"cards: {card}")
+    return out
+
+
+# the four NCCL processes: each runs ``nccl_worker`` on its own card
+
+NCCL_PATHS = ("spatial", "match", "dp", "pgo", "ba observations",
+              "ba landmarks")
+
+
+def nccl_paths(torch, a, dm, hc, rank):
+    """{path: call} of the four-process phase, with this rank's inputs on
+    its card: the spatial program on the 960x1280 image over ``dm``,
+    ``sharded_match`` at 10000 x 10000, this rank's share of the dp step's
+    8 pairs (``dp_pipeline_step_multihost``), and the SLAM cell's solvers
+    (``solver_calls``).  With ``rank`` None: the one-process mesh's calls
+    of the same shape (the whole dp batch)."""
+    from akaze_tpu_torch import Akaze, AkazeConfig
+    from akaze_tpu_torch.parallel import (dp_pipeline_step,
+                                          dp_pipeline_step_multihost,
+                                          process_local_batch, sharded_match)
+    home = dm.home
+    det = Akaze(AkazeConfig(max_pts=MAX_PTS), mesh=dm)
+    x = torch.as_tensor(a, device=home)
+    w1, w2, v1, v2, x2, y2 = k4_stress_inputs(torch, home)
+    at, bt = dp_inputs(torch, home)
+    plan = det.plan_for(H, W)
+    if rank is None:
+        def dp():
+            return dp_pipeline_step(at, bt, plan, dm)
+    else:
+        n = process_local_batch(DP_PAIRS)
+        la, lb = at[rank * n:(rank + 1) * n], bt[rank * n:(rank + 1) * n]
+
+        def dp():
+            return dp_pipeline_step_multihost(la, lb, plan, dm)
+    calls = {"spatial": lambda: det.detect_and_compute(x),
+             "match": lambda: sharded_match(w1, v1, w2, v2, x2, y2, dm, 96),
+             "dp": dp}
+    calls.update(solver_calls(torch, home, dm, hc))
+    return calls
+
+
+def rank_turns(torch, fn, rank: int, reps: int = 5) -> dict:
+    """``fn`` eager and captured in turns (medians between CUDA events)
+    and, per form, the card's busy time (the union of its device events),
+    its compute time (the same without NCCL's kernels), NCCL's summed
+    kernel time, and the idle share 1 - compute / wall: NCCL's kernels run
+    on a stream of their own and spin there until the other ranks arrive,
+    so their time counts the ranks' skew (a profiled call of one rank can
+    wait on another rank's previous call), not work of this card."""
+    from akaze_tpu_torch import programs
+    eager, captured = in_turns(torch, fn, reps)
+    out = dict(eager_ms=float(np.median(eager)),
+               captured_ms=float(np.median(captured)))
+    for kind in ("eager", "captured"):
+        with programs.eager() if kind == "eager" else \
+                contextlib.nullcontext():
+            p = profile_cards(torch, fn, 1, [rank]).get(rank, {})
+        out.update({f"{kind}_{k}_ms": p.get(k, 0.0)
+                    for k in ("busy", "compute", "nccl")})
+        out[f"{kind}_idle"] = 1.0 - out[f"{kind}_compute_ms"] / out[
+            f"{kind}_ms"]
+    return out
+
+
+def nccl_worker(torch, rank: int, port: int, outdir: str) -> int:
+    """One of four processes, on card ``rank`` (``local_device_ids=
+    [rank]``), joined on NCCL: each path of ``nccl_paths`` eagerly
+    (``programs.eager()``), then as its program (captured: one graph per
+    rank holding the NCCL calls) and replayed, every replay equal to the
+    eager call bit for bit, no host sync in a replay, no new key on a
+    repeat; eager and captured times in turns and each one's idle share.
+    Writes the outputs and a JSON of the numbers to ``outdir``."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch import parallel as P
+    check(P.initialize_distributed(f"tcp://localhost:{port}", CARDS, rank,
+                                   local_device_ids=[rank]),
+          "initialize_distributed did not join the group")
+    check(torch.cuda.current_device() == rank,
+          f"rank {rank}: card {torch.cuda.current_device()} is current")
+    dm, hc = P.make_mesh(CARDS), P.make_host_chip_mesh(CARDS, 1)
+    check(dm.local_devices == [torch.device("cuda", rank)]
+          and dm.spans_processes("data") and hc.spans_processes("host"),
+          f"rank {rank}: meshes {dm}, {hc}")
+    (a, _), _, _, _ = load_pair(None)
+    calls = nccl_paths(torch, a, dm, hc, rank)
+    outs, info = {}, {"rank": rank, "card": str(dm.home)}
+    for name in NCCL_PATHS:
+        fn = calls[name]
+        tag = f"nccl {name} rank {rank}"
+        with programs.eager(), no_plain_versions():
+            want = pytree_leaves(fn())
+        with no_plain_versions():
+            first = pytree_leaves(fn())
+            torch.cuda.synchronize()
+            captures = sum(p.captures for p in programs.programs())
+            replays = [pytree_leaves(fn()) for _ in range(2)]
+            torch.cuda.synchronize()
+        check(sum(p.captures for p in programs.programs()) == captures,
+              f"[{tag}] a repeated call captured a new key")
+        for got in [first] + replays:
+            equal_outputs(torch, got, want, tag)
+        if name != "match":         # sharded_match is no program
+            no_sync(torch, fn, tag)
+        outs.update({f"{name}.{i}": t.cpu().numpy()
+                     for i, t in enumerate(want)})
+        with no_plain_versions():
+            info[name] = rank_turns(torch, fn, rank)
+    info["keys"] = [dict(program=s["program"].rsplit(".", 1)[1],
+                         key=s["key"][:160], eager=s["eager"],
+                         nccl=s["nccl"], capture_s=s["capture_s"],
+                         pool_mib=s["pool_bytes"] / 2**20)
+                    for s in programs.stats() if "Mesh(" in s["key"]]
+    torch.cuda.synchronize()
+    np.savez(os.path.join(outdir, f"out.{rank}.npz"), **outs)
+    with open(os.path.join(outdir, f"info.{rank}.json"), "w") as f:
+        json.dump(info, f)
+    # leave once every rank wrote its results, with no collective at
+    # teardown (a barrier or destroy_process_group there can wait forever
+    # on communicators that captured graphs hold)
+    open(os.path.join(outdir, f"done.{rank}"), "w").close()
+    t0 = time.monotonic()
+    while not all(os.path.exists(os.path.join(outdir, f"done.{r}"))
+                  for r in range(CARDS)):
+        check(time.monotonic() - t0 < 120, f"rank {rank}: the other ranks "
+              f"did not finish")
+        time.sleep(0.05)
+    print(f"[nccl rank {rank}] done", flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_nccl(torch, cards, card, a):
+    """Four processes of one card each on NCCL (``nccl_worker``): every
+    path's outputs equal on every rank to the one-process mesh of the same
+    shape (four shards on cuda:0) bit for bit: replicated outputs equal on
+    all ranks, per-shard outputs each rank's shard; every mesh key of a
+    collective across processes captured with its NCCL calls.  A worker's
+    failure fails the run with its exit code and the tail of its
+    output."""
+    import socket
+    from akaze_tpu_torch.parallel import make_host_chip_mesh
+    one = one_card_mesh(cards)
+    hc1 = make_host_chip_mesh(CARDS, 1, devices=[cards[0]] * CARDS)
+    refs = {name: fn() for name, fn in nccl_paths(torch, a, one, hc1,
+                                                  None).items()}
+    torch.cuda.synchronize()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as outdir:
+        logs = [open(os.path.join(outdir, f"log.{r}"), "w+")
+                for r in range(CARDS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--worker",
+             str(r), str(port), outdir], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(CARDS)]
+        try:
+            # a rank that fails leaves the others waiting in a collective:
+            # stop them all at the first failure
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < NCCL_TIMEOUT_S):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tails = []
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            tails.append(f.read()[-4000:])
+            f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(f"[nccl] rank {r} exit {p.returncode}; its output "
+                      f"ends:\n{tails[r]}", flush=True)
+        check(all(p.returncode == 0 for p in procs),
+              f"[nccl] worker exit codes {[p.returncode for p in procs]}")
+        wall = time.perf_counter() - t0
+        got = [np.load(os.path.join(outdir, f"out.{r}.npz"))
+               for r in range(CARDS)]
+        info = []
+        for r in range(CARDS):
+            with open(os.path.join(outdir, f"info.{r}.json")) as f:
+                info.append(json.load(f))
+    for name in NCCL_PATHS:
+        want = refs[name]
+        for r, g in enumerate(got):
+            # replicated outputs (features, poses, costs) are one tensor on
+            # the mesh's first device; per-shard outputs a list over the
+            # shards, of which each rank holds its own
+            mine = rank_view(want, r)
+            leaves = [x.cpu().numpy() for x in pytree_leaves(mine)]
+            keys = sorted((k for k in g.files
+                           if k.rsplit(".", 1)[0] == name),
+                          key=lambda k: int(k.rsplit(".", 1)[1]))
+            check(len(keys) == len(leaves), f"[nccl {name}] rank {r}: "
+                  f"{len(keys)} outputs, the one-process mesh "
+                  f"{len(leaves)}")
+            for k, w in zip(keys, leaves):
+                check(g[k].dtype == w.dtype and np.array_equal(g[k], w),
+                      f"[nccl {name}] rank {r} output {k} differs from the "
+                      f"one-process mesh's")
+    for r, inf in enumerate(info):
+        keys = inf["keys"]
+        crossing = [k for k in keys if k["nccl"]]
+        check(crossing and all(not k["eager"] for k in keys),
+              f"[nccl] rank {r}: mesh keys {keys}")
+        for name in NCCL_PATHS:
+            x = inf[name]
+            # sharded_match is no program: both forms are its eager call
+            print(f"[nccl {name}] rank {r} on {inf['card']}: eager "
+                  f"{x['eager_ms']:.3f} ms, "
+                  f"{'again' if name == 'match' else 'captured'} "
+                  f"{x['captured_ms']:.3f} ms (in turns); device busy eager "
+                  f"{x['eager_busy_ms']:.3f}"
+                  f" / captured {x['captured_busy_ms']:.3f} ms (compute "
+                  f"{x['eager_compute_ms']:.3f} / "
+                  f"{x['captured_compute_ms']:.3f}, NCCL kernels "
+                  f"{x['eager_nccl_ms']:.3f} / {x['captured_nccl_ms']:.3f}); "
+                  f"idle share (no compute kernel) eager "
+                  f"{x['eager_idle']:.3f}, captured {x['captured_idle']:.3f}")
+        print(f"[nccl keys] rank {r}: " + "; ".join(
+            f"{k['program']} nccl={k['nccl']} capture {k['capture_s']:.2f} "
+            f"s, pool +{k['pool_mib']:.1f} MiB" for k in keys))
+    print(f"[nccl] four processes of one card each on NCCL, in {wall:.1f} "
+          f"s: every path ({', '.join(NCCL_PATHS)}) equal bit for bit on "
+          f"every rank to the one-process mesh of the same shape; every "
+          f"key across processes captured with its NCCL calls, replays = "
+          f"eager, no host sync, no new key on a repeat; cards: {card}")
+    return info
+
+
+def rank_view(out, r):
+    """Rank ``r``'s part of a one-process mesh output: per-shard lists
+    (one entry per shard) give shard ``r``; everything else is
+    replicated."""
+    if isinstance(out, list):
+        return out[r]
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        return tuple(rank_view(x, r) for x in out)
+    return out
+
+
+def cards_rows(sp, match, dp, k1_rep, k1_b1_rep, k2_rep, k4_rep):
+    """The kernels line's four-card rows: per card (the mean over the four
+    cards, each card's numbers beside it) device ms per pair of the
+    spatial main path (``*_cards4``), per 10000 x 10000 call
+    (``hamming_kernel_cards4_sharded_match``) and per dp step of 8 pairs
+    (``*_cards4_dp``); launches per card; bounds and plain times from each
+    card's own launches."""
+    srcs = {"k1": "akaze_tpu_torch/csrc/sublevel.cu",
+            "k2": "akaze_tpu_torch/csrc/describe.cu",
+            "k4": "akaze_tpu_torch/csrc/hamming.cu"}
+    rows = []
+
+    def row(name, src, rep, launches, errs, ms, plains, bounds,
+            library=None, idle=None):
+        b = [x[0] for x in bounds]
+        rows.append(dict(
+            name=name, source=srcs[src], replaces=rep,
+            launches=launches, launches_per_card=launches,
+            max_abs_err=max(errs), ms=float(np.mean(ms)),
+            ms_per_card=ms, plain_ms=float(np.mean(plains)),
+            bound_ms=float(np.mean(b)), bound_by=bounds[0][1],
+            library_ms=(None if library is None
+                        else float(np.mean(library))),
+            idle_per_card=idle))
+
+    for sfx, r, rep1 in (("_cards4", sp, k1_b1_rep), ("_cards4_dp", dp,
+                                                      k1_rep)):
+        cards = sorted(r["prof"])
+        ch = r["checks"]
+        n0 = r["launches"]["cuda:1"]     # a card besides the mesh's first
+        for kind, key, pre, needle in (
+                ("tiled_kernel", "tiled", "", "tiled_kernel<float>"),
+                ("octave_kernel", "resident", "res_",
+                 "octave_kernel<float>")):
+            if not n0[key]:
+                continue
+            row(kind + sfx, "k1", rep1, n0[key],
+                [c["k1"][pre + "abs_err" if pre else "max_abs_err"]
+                 for c in ch],
+                [card_ms(r["prof"], c, (needle,)) for c in cards],
+                [c["k1"][pre + "plain_ms"] for c in ch],
+                [bound(c["k1"][pre + "bytes"], c["k1"][pre + "ops"])
+                 for c in ch], idle=r["idle"])
+        row("describe_kernel" + sfx, "k2", k2_rep, n0["describe"],
+            [c["k2"]["max_abs_err"] for c in ch],
+            [card_ms(r["prof"], c, ("describe_kernel",)) for c in cards],
+            [c["k2"]["plain_ms"] for c in ch],
+            [bound(c["k2"]["bytes"], 0) for c in ch], idle=r["idle"])
+        if n0["hamming"]:
+            row("hamming_kernel" + sfx, "k4", k4_rep, n0["hamming"],
+                [c["k4"]["max_abs_err"] for c in ch],
+                [card_ms(r["prof"], c, ("hamming_kernel",))
+                 for c in cards],
+                [c["k4"]["plain_ms"] for c in ch],
+                [(c["k4"]["bound_ms"], c["k4"]["bound_by"]) for c in ch],
+                library=[c["k4"]["library_ms"] for c in ch],
+                idle=r["idle"])
+    ch = match["checks"]
+    row("hamming_kernel_cards4_sharded_match", "k4", k4_rep, 1,
+        [c["k4"]["max_abs_err"] for c in ch], match["ms"],
+        [c["k4"]["plain_ms"] for c in ch],
+        [(c["k4"]["bound_ms"], c["k4"]["bound_by"]) for c in ch],
+        library=[c["k4"]["library_ms"] for c in ch], idle=match["idle"])
+    return rows
+
+
+def main_four(torch, args) -> int:
+    """``--cards 4``: the multi-device tier on four cards, in two forms:
+    one process over cuda:0..3 (every mesh path held bit for bit against
+    the same mesh with its four shards on cuda:0) and four processes of
+    one card each on NCCL (every path equal to the one-process mesh, its
+    keys captured); the memory a mesh saves per card.  Fails, and never
+    skips, with fewer than four cards."""
+    n = torch.cuda.device_count()
+    check(n >= CARDS, f"--cards {CARDS} needs {CARDS} visible cards, "
+          f"{n} visible")
+    cards = [torch.device("cuda", i) for i in range(CARDS)]
+    torch.cuda.set_device(cards[0])
+    card = phase_device(torch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    names = smi.stdout.strip().splitlines()
+    print(f"[cards] {len(names)} cards: " + " | ".join(names))
+    card = " | ".join(names[:CARDS]) if len(set(names)) > 1 else (
+        f"{CARDS} x {card}")
+    link = phase_link(torch, cards)
+    phase_build()
+    (a, b), (a8, b8), desc, shift = load_pair(args.stock_dir)
+    print(f"[pair] {desc}")
+    t0 = time.perf_counter()
+    flavours = mesh_flavours()
+    sp = phase_cards_spatial(torch, cards, card, {False: (a, b),
+                                                  True: (a8, b8)},
+                             flavours, (H, W), shift,
+                             profile_flavour="float")
+    phase_cards_spatial(torch, cards, card, big_pairs(),
+                        {"float": flavours["float"]}, (BIG_H, BIG_W), SHIFT)
+    match = phase_cards_match(torch, cards, card)
+    dp = phase_cards_dp(torch, cards, card)
+    phase_cards_solvers(torch, cards, card)
+    t1 = time.perf_counter()
+    frames, _ = slam_route()
+    print(f"[cards slam] route of {len(frames)} frames rendered in "
+          f"{time.perf_counter() - t1:.1f} s")
+    phase_cards_slam(torch, cards, card, frames)
+    phase_cards_cli(torch, cards, card, (a8, b8))
+    phase_cards_dryrun(torch, cards)
+    memory = phase_cards_memory(torch, cards, card)
+    print(f"[cards] one process over {CARDS} cards: every path passed in "
+          f"{time.perf_counter() - t0:.1f} s; no kernel's plain version ran "
+          f"on a card inside one")
+    t0 = time.perf_counter()
+    phase_nccl(torch, cards, card, a)
+    print(f"[nccl] passed in {time.perf_counter() - t0:.1f} s")
+    rows = cards_rows(sp["float"], match, dp,
+                      "akaze_tpu/ops/pallas_sublevel.py:423",
+                      "akaze_tpu/ops/pallas_sublevel.py:346",
+                      "akaze_tpu/ops/pallas_describe.py:1107, "
+                      "akaze_tpu/ops/pallas_describe.py:579",
+                      "akaze_tpu/ops/pallas_match.py:103")
+    kernels = [dict(row, route="cuda") for row in rows]
+    for r in kernels:
+        print(f"[kernels] {r['name']}: {r['launches']} launches per card, "
+              f"device {r['ms']:.4f} ms per card (cards "
+              f"{', '.join(f'{x:.4f}' for x in r['ms_per_card'])}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g}")
+    print(f"[cards] link {json.dumps(link)}; memory {json.dumps(memory)}")
+    print(f"[kernels] cards: {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def k3_row_inputs(torch, dev, frame):
     """The single-image path's plan and one frame on the card."""
     from akaze_tpu_torch import Akaze, AkazeConfig
@@ -3020,6 +4023,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stock-dir",
                     help="directory holding left.pgm and right.pgm")
+    ap.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
+                    help=f"{CARDS}: only the four-card phases (one process "
+                    f"over four cards, four NCCL processes); fails with "
+                    f"fewer than {CARDS} cards")
+    ap.add_argument("--worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # the port is the checkout's own, beside this script, never an installed
@@ -3035,6 +4044,11 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.worker:
+        rank, port, outdir = args.worker
+        return nccl_worker(torch, int(rank), int(port), outdir)
+    if args.cards == CARDS:
+        return main_four(torch, args)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 

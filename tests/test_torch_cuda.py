@@ -1997,3 +1997,145 @@ def test_cli_spatial_twice_captures_nothing_new(cuda, tmp_path):
     assert captures[1] == captures[0]
     for k in ("left_pts", "right_pts", "matches"):
         assert recs[0][k] == recs[1][k] > 0, k
+
+
+@pytest.mark.cuda
+def test_programs_equal_eager_on_transposed_inputs(cuda):
+    """Rotations as ``se3_inverse`` returns them (a transposed view): the
+    sharded BA programs' captured calls equal their eager calls bit for
+    bit (eager calls see contiguous inputs, as the graphs' buffers hold
+    them; a matmul on the transposed layout rounds otherwise)."""
+    import torch_mp_worker as worker
+    from torch.utils import _pytree as pytree
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.parallel import (make_mesh, pad_observations,
+                                          sharded_bundle_adjust)
+    R, t, X0, prob = worker.make_problem()
+    assert not R.is_contiguous()
+    R = R.to(cuda)
+    mesh = make_mesh(4, devices=[cuda] * 4)
+
+    def call():
+        return pytree.tree_leaves(sharded_bundle_adjust(
+            R, t, X0, pad_observations(prob, 4), mesh, iters=4))
+
+    with programs.eager():
+        want = call()
+    for got in (call(), call()):            # the capture, then a replay
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --------------------------------------------------------------------------
+# four cards: one process over cuda:0..3, and four NCCL processes
+# --------------------------------------------------------------------------
+
+@pytest.fixture()
+def cards4():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _same_leaves(got, want):
+    from torch.utils import _pytree as pytree
+    g, w = pytree.tree_leaves(got), pytree.tree_leaves(want)
+    assert len(g) == len(w)
+    for i, (a, b) in enumerate(zip(g, w)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a.cpu(), b.cpu()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+def test_four_cards_spatial_equals_one_card(cards4, monkeypatch, fixed):
+    """480x640 row-sharded over cuda:0..3 in one process: features and
+    matches bit for bit the same mesh shape's with its four shards on
+    cuda:0, K1/K2 launches as the route predicts, no plain version run."""
+    from akaze_tpu_torch.parallel import make_mesh, spatial_launches
+    for mod, name in ((k1, "sublevel_plain"), (k1, "octave_plain"),
+                      (k2, "describe_plain"), (k4, "hamming_top2_plain")):
+        monkeypatch.setattr(mod, name, None)
+    a, b = pair(480, 640)
+    if fixed:
+        a, b = ((x * 255).astype(np.uint8) for x in (a, b))
+    cfg = AkazeConfig(max_pts=4000)
+    one = Akaze(cfg, fixed=fixed, mesh=make_mesh(4, devices=[cards4[0]] * 4))
+    four = Akaze(cfg, fixed=fixed, mesh=make_mesh(4))
+    assert four.mesh.local_devices == cards4
+    want = one.detect_and_compute_pair(a, b)
+    _reset_counts()
+    got = four.detect_and_compute_pair(a, b)
+    torch.cuda.synchronize()
+    per = spatial_launches(four.plan_for(480, 640), 4)
+    assert _launch_counts() == {"tiled": 8 * per["tiled"],
+                                "resident": 8 * per["resident"],
+                                "describe": 8, "hamming": 0}
+    assert int(want[0].count) > 200
+    _same_leaves(got, want)
+    _same_leaves(four.match(*got), one.match(*want))
+
+
+@pytest.mark.cuda
+def test_four_cards_dp_and_solvers_equal_one_card(cards4):
+    """The dp step (4 pairs), sharded PGO, observation- and
+    landmark-sharded BA over cuda:0..3 in one process: bit for bit the same
+    mesh shape's with its four shards on cuda:0."""
+    import torch_mp_worker as worker
+    from akaze_tpu_torch.parallel import (dp_pipeline_step, gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          make_host_chip_mesh, make_mesh,
+                                          pad_observations,
+                                          partition_landmarks,
+                                          sharded_bundle_adjust,
+                                          sharded_optimize_pose_graph)
+    a, b = pair()
+    imgs_a = torch.stack([torch.as_tensor(a)] * 2 + [torch.as_tensor(b)] * 2)
+    imgs_b = torch.stack([torch.as_tensor(b)] * 2 + [torch.as_tensor(a)] * 2)
+    plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
+    R0, t0, graph = worker.pose_graph()
+    R, t, X0, prob = worker.make_problem()
+    part = partition_landmarks(prob, X0.shape[0], 4)
+    runs = []
+    for devices in ([cards4[0]] * 4, cards4):
+        mesh = make_mesh(4, devices=devices)
+        hc = make_host_chip_mesh(1, 4, devices=devices)
+        runs.append((
+            dp_pipeline_step(imgs_a, imgs_b, plan, mesh),
+            sharded_optimize_pose_graph(R0, t0, graph, mesh, iters=4,
+                                        robust="cauchy", robust_delta=0.5),
+            sharded_bundle_adjust(R, t, X0, pad_observations(prob, 4), mesh,
+                                  iters=4),
+            landmark_sharded_bundle_adjust(
+                R, t, gather_points(part, X0), part, hc, iters=4,
+                axis=("chip", "host"))))
+    assert [f.x.device for f in runs[1][0][0]] == cards4
+    _same_leaves(runs[1], runs[0])
+
+
+@pytest.mark.cuda
+def test_four_nccl_processes_capture_equals_eager(cards4, tmp_path):
+    """Four processes, one card each (``local_device_ids=[rank]``), on
+    NCCL: each rank captures the spatial program, sharded PGO and
+    landmark-sharded BA with their NCCL calls, and its replays equal its
+    eager calls bit for bit without a host sync (in the worker); the sums
+    of real-valued inputs, PGO and BA equal the one-process mesh of the
+    same shape on cuda:0 bit for bit, on every rank."""
+    import torch_mp_worker as worker
+    from akaze_tpu_torch.parallel import make_host_chip_mesh, make_mesh
+    from test_torch_multiprocess import join_workers, spawn_workers
+    prefix = str(tmp_path / "nccl")
+    procs = spawn_workers(prefix, 4, "cuda")
+    one = [cards4[0]] * 4
+    ref = worker.run_four(make_host_chip_mesh(4, 1, devices=one),
+                          make_mesh(4, devices=one))
+    f = Akaze(AkazeConfig(max_pts=1024), mesh=make_mesh(
+        4, devices=one)).detect_and_compute(worker.spatial_image())
+    ref.update({"spatial_" + k: getattr(f, k).cpu().numpy() for k in (
+        "x", "y", "layer", "angle", "words", "valid", "count")})
+    got = join_workers(procs, prefix, timeout=300)
+    assert int(ref["spatial_count"]) > 100
+    for r, g in enumerate(got):
+        assert int(g["captured_keys"]) >= 3
+        for k in ref:
+            want = ref[k][r:r + 1] if k in ("psum", "hc_psum") else ref[k]
+            np.testing.assert_array_equal(g[k], want, err_msg=f"rank {r} {k}")

@@ -13,6 +13,11 @@ across the two processes last, in both runs, so its results are held
 EXACTLY; so are the collectives (integer-valued inputs), the spatial front
 end (its halo exchange between shards 3 and 4 crosses the processes) and
 the sharded matcher.  Each worker has 60 s.
+
+Four processes of one CPU shard each hold what two cannot show: sums of
+REAL-valued inputs whose result depends on the order of their terms
+(``psum``, sharded PGO's and landmark-sharded BA's), equal bit for bit to
+the one-process mesh of the same shape and on every rank.
 """
 
 import os
@@ -33,6 +38,38 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def spawn_workers(prefix: str, world: int, *extra: str) -> list:
+    """Start ``world`` worker processes joined on a free port (``extra``:
+    ``"cuda"`` for one card each on NCCL)."""
+    port = free_port()
+    env = dict(os.environ)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "torch_mp_worker.py"), str(r),
+         str(port), prefix, str(world), *extra],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+
+
+def join_workers(procs: list, prefix: str, timeout: float = TIMEOUT_S):
+    """Wait for the workers (killing any left at the end), fail with the
+    tail of a failed worker's output, and load their results."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{log[-3000:]}"
+    return [np.load(f"{prefix}.{r}.npz") for r in range(len(procs))]
 
 
 def test_two_processes_equal_one(tmp_path):
@@ -84,3 +121,33 @@ def test_two_processes_equal_one(tmp_path):
         for k in ("hc_psum", "hc_gather"):
             np.testing.assert_array_equal(g[k], ref[k][hc_local[r]],
                                           err_msg=k)
+
+
+def test_four_processes_sum_as_one(tmp_path):
+    """Four gloo processes of one CPU shard each: ``psum`` of real-valued
+    inputs, sharded PGO over ``data`` and landmark-sharded BA over
+    ("chip", "host") equal the one-process four-shard meshes bit for bit,
+    on every rank (the cross-process sums all-gather every shard's operand
+    and fold them in index order; an ``all_reduce`` sums in the backend's
+    order, which differs from it for real values)."""
+    from akaze_tpu_torch import parallel as P
+
+    prefix = str(tmp_path / "mp4")
+    procs = spawn_workers(prefix, 4)
+    torch.set_num_threads(1)
+    ref = worker.run_four(P.make_host_chip_mesh(4, 1, devices=["cpu"] * 4),
+                          P.make_mesh(4, devices=["cpu"] * 4))
+    got = join_workers(procs, prefix)
+    # the inputs are real-valued: another order of the terms moves bits
+    g = worker.real_input().numpy()
+    assert not np.array_equal(((g[:96] + g[96:192]) + g[192:288]) + g[288:],
+                              (g[:96] + g[96:192]) + (g[192:288] + g[288:]))
+    from akaze_tpu_torch.slam.posegraph import pose_graph_cost
+    assert (float(ref["pgo_cost"])
+            < 0.9 * float(pose_graph_cost(*worker.pose_graph())))
+    assert float(ref["ba_cost"]) < 1e-6
+    for r, gr in enumerate(got):
+        assert sorted(gr.files) == sorted(ref)
+        for k in ref:      # per-shard sums: this rank's one shard
+            want = ref[k][r:r + 1] if k in ("psum", "hc_psum") else ref[k]
+            np.testing.assert_array_equal(gr[k], want, err_msg=f"rank {r} {k}")

@@ -508,6 +508,101 @@ def test_distributed_without_a_launcher(monkeypatch):
     assert tpar.process_local_batch(6) == 6
 
 
+def test_local_device_ids_set_the_meshes_and_the_card(monkeypatch):
+    """JAX's ``local_device_ids``: the cards a process owns become the
+    default devices of its meshes, and the first the current card; in a
+    world of four processes the process axis spans them."""
+    import torch.distributed as dist
+    from akaze_tpu_torch.parallel import mesh as tmesh
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    current = []
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    cards = [torch.device("cuda", 2), torch.device("cuda", 3)]
+    try:
+        assert tpar.initialize_distributed(local_device_ids=[2, 3]) is False
+        assert tmesh.visible_devices() == cards and current == cards[:1]
+        assert tpar.make_mesh().local_devices == cards
+        assert tpar.make_mesh(1).local_devices == cards[:1]
+        assert tpar.make_host_chip_mesh(1, 2).local_devices == cards
+        with pytest.raises(ValueError, match="requested 4"):
+            tpar.make_mesh(4)
+        # process 2 of 4, one card each
+        assert tpar.initialize_distributed(local_device_ids=[2]) is False
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+        monkeypatch.setattr(dist, "get_rank", lambda group=None: 2)
+        m = tpar.make_mesh(4)
+        assert m.local_devices == cards[:1] and m.process_index == 2
+        assert m.shape == {"data": 4} and m.spans_processes("data")
+        hc = tpar.make_host_chip_mesh(4, 1)
+        assert hc.local_devices == cards[:1] and hc.shape == {"host": 4,
+                                                               "chip": 1}
+    finally:
+        tmesh.set_local_devices(None)
+    assert len(tmesh.visible_devices()) == 4
+
+
+def test_nccl_ranks_on_one_card_are_refused(monkeypatch):
+    """A group whose CUDA backend is NCCL refuses, when it comes up, two
+    ranks that drive one card (checked over the CPU's backend, before any
+    NCCL call); cards of their own pass, and a gloo group is not
+    checked."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from akaze_tpu_torch.parallel import mesh as tmesh
+    backend = ["cpu:gloo,cuda:nccl"]
+    peer = [None]                 # the other rank's card (None: ours)
+    inits, gathers = [], []
+
+    def all_gather_object(out, obj, group=None):
+        gathers.append(group)
+        out[:] = [obj, peer[0] or obj]
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda b, **kw: inits.append(b))
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_backend_config",
+                        lambda group=None: backend[0])
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(uuid="GPU-a"))
+    try:
+        with pytest.raises(ValueError, match="both drive card"):
+            tpar.initialize_distributed("tcp://localhost:1", 2, 1)
+        assert inits == ["cpu:gloo,cuda:nccl"] and gathers == [None]
+        peer[0] = "another-host/GPU-a"
+        assert tpar.initialize_distributed("tcp://localhost:1", 2, 1,
+                                           local_device_ids=[0])
+        backend[0] = "cpu:gloo,cuda:gloo"
+        peer[0] = None
+        assert tpar.initialize_distributed("tcp://localhost:1", 2, 1,
+                                           backend="gloo")
+        assert len(gathers) == 2
+    finally:
+        tmesh.set_local_devices(None)
+
+
+@pytest.mark.parametrize("config,cuda,cpu", [
+    ("cpu:gloo,cuda:nccl", "nccl", "gloo"),
+    ("cpu:gloo,cuda:gloo", "gloo", "gloo"),
+    ("cuda:nccl", "nccl", "nccl"),
+    ("nccl", "nccl", "nccl")])
+def test_collective_backend_reads_the_group(monkeypatch, config, cuda, cpu):
+    import torch.distributed as dist
+    from akaze_tpu_torch.parallel.distributed import collective_backend
+    monkeypatch.setattr(dist, "get_backend_config", lambda group=None: config)
+    assert collective_backend(None) == cuda
+    assert collective_backend(None, "cpu") == cpu
+
+
 def test_dryrun_multichip_on_cpu_shards():
     out = tpar.dryrun_multichip(8, devices=["cpu"] * 8)
     assert len(out["counts"]) == 8 and min(out["counts"]) > 20

@@ -383,14 +383,18 @@ def test_dp_program_statics_are_make_dp_steps_closure():
     assert step.keywords == dict(plan=plan, mesh=mesh, fixed=True)
 
 
-def _process_mesh(monkeypatch, n=4, device="cuda:0"):
+def _process_mesh(monkeypatch, n=4, device="cuda:0",
+                  backend="cpu:gloo,cuda:gloo", devices=None):
     """A mesh whose "data" axis spans two processes, built from device
-    names alone (torch.distributed answering as process 0 of 2)."""
+    names alone (torch.distributed answering as process 0 of 2, its group
+    on ``backend``)."""
     import torch.distributed as dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
     monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
-    return programs_mesh([device] * n, process_axis="data")
+    monkeypatch.setattr(dist, "get_backend_config",
+                        lambda group=None: backend)
+    return programs_mesh(devices or [device] * n, process_axis="data")
 
 
 def programs_mesh(devices, axis_names=("data",), process_axis=None):
@@ -437,6 +441,55 @@ def test_mesh_capture_rule(monkeypatch):
     assert sp.route(img, plan, one_card, False, True) == "eager"
     assert tspgo._run_sharded_pgo.collective_axes({"axis": ("chip",)}) \
         == ("chip",)
+
+
+def test_mesh_route_captures_collectives_on_nccl(monkeypatch):
+    """A key whose local shards share one card and whose collectives cross
+    processes on NCCL is captured (each rank's graph holds the NCCL
+    calls); on gloo it runs eagerly, as does a process over several
+    cards, whatever the backend."""
+    cuda0 = torch.device("cuda", 0)
+    route = programs.mesh_route
+    sp = tpipe._jit_spatial_detect_and_compute
+    pgo = tspgo._run_sharded_pgo
+    nccl = _process_mesh(monkeypatch, n=1, backend="cpu:gloo,cuda:nccl")
+    assert route(nccl, [cuda0], "data") == "capture"
+    assert route(nccl, [], ("data",)) == "capture"
+    assert route(nccl, [cuda0], None) == "capture"
+    assert route(nccl, [torch.device("cuda", 1)], "data") == "eager"
+    assert sp.crosses_on_nccl((("mesh", nccl),))
+    assert pgo.crosses_on_nccl((("mesh", nccl), ("axis", ("data",))))
+    assert not pgo.crosses_on_nccl((("mesh", nccl), ("axis", ("chip",))))
+    cards = _process_mesh(monkeypatch, backend="cpu:gloo,cuda:nccl",
+                          devices=["cuda:0", "cuda:1"])
+    assert route(cards, [cuda0], "data") == "eager"
+    assert route(cards, [cuda0], None) == "eager"
+    gloo = _process_mesh(monkeypatch, n=1)
+    assert route(gloo, [cuda0], "data") == "eager"
+    assert route(gloo, [cuda0], None) == "capture"
+    assert not sp.crosses_on_nccl((("mesh", gloo),))
+    four = make_mesh(4, devices=[f"cuda:{i}" for i in range(4)])
+    assert route(four, [cuda0], "data") == "eager"
+    assert route(four, [], None) == "eager"
+    assert not sp.crosses_on_nccl((("mesh", four),))
+
+
+def test_calls_not_captured_see_the_graphs_inputs():
+    """A call that is not captured (``eager()``, or a key the mesh rule
+    runs eagerly) hands its function what a graph's input buffers hold:
+    on the card every tensor contiguous (a matmul rounds otherwise on a
+    transposed operand) and every number a 0-d tensor; on the CPU tensors
+    as they are."""
+    x = torch.arange(18.0).reshape(2, 3, 3).transpose(-1, -2)
+    assert not x.is_contiguous()
+    card = torch.device("cuda", 0)
+    assert programs._eager_input(x, torch.device("cpu")) is x
+    got = programs._eager_input(x, card)
+    assert got.is_contiguous() and torch.equal(got, x)
+    y = x.contiguous()
+    assert programs._eager_input(y, card) is y
+    n = programs._eager_input(0.5, torch.device("cpu"))
+    assert n.dim() == 0 and n.dtype == torch.float32 and float(n) == 0.5
 
 
 def test_mesh_keys_follow_the_mesh():

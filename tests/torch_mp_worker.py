@@ -1,14 +1,19 @@
-"""Worker of tests/test_torch_multiprocess.py (not collected by pytest).
+"""Worker of tests/test_torch_multiprocess.py and the four-process card
+test of tests/test_torch_cuda.py (not collected by pytest).
 
-Each of two processes owns four shards on the CPU, joins a two-process
-``gloo`` group through ``initialize_distributed``, and runs the port's
-sharded paths over meshes whose ``host`` (or ``data``) axis spans both
-processes: landmark-sharded BA over ("chip", "host"), each collective,
-the spatial front end with its halo exchange crossing the processes, and
-the sharded matcher.  It writes its results for the parent to hold
-against the one-process run of the same programs.
+With two processes (the default), each owns four shards on the CPU, joins
+a two-process ``gloo`` group through ``initialize_distributed``, and runs
+the port's sharded paths over meshes whose ``host`` (or ``data``) axis
+spans both processes: landmark-sharded BA over ("chip", "host"), each
+collective, the spatial front end with its halo exchange crossing the
+processes, and the sharded matcher.  With four, each owns one shard (a
+CPU shard on ``gloo``, or with ``cuda`` its own card, ``local_device_ids
+=[rank]``, on NCCL) and runs ``run_four``: sums of real-valued inputs,
+sharded PGO and landmark-sharded BA, whose results depend on the order
+of the sums across the processes.  It writes its results for the parent
+to hold against the one-process run of the same programs.
 
-Usage: python torch_mp_worker.py <rank> <port> <out_prefix>
+Usage: python torch_mp_worker.py <rank> <port> <out_prefix> [4 [cuda]]
 """
 
 import os
@@ -125,14 +130,174 @@ def run(hc, dm) -> dict:
     return out
 
 
+def real_input():
+    """Normal float32 values: their sums depend on the order."""
+    rng = np.random.default_rng(7)
+    return torch.from_numpy(rng.standard_normal((4 * 96, 33))
+                            .astype(np.float32))
+
+
+def pose_graph():
+    """24 drifted poses on a curve: a chain plus 20 seeded loop edges (one
+    an outlier), in a seeded order so that each node's sums take terms
+    from several edge shards; 48 edge slots."""
+    from akaze_tpu_torch.geometry import se3_compose, se3_exp, se3_inverse
+    from akaze_tpu_torch.parallel import pad_edges
+    from akaze_tpu_torch.slam.posegraph import PoseGraph
+
+    rng = np.random.default_rng(5)
+    n = 24
+    xi = np.zeros((n, 6), np.float32)
+    xi[:, 0] = np.arange(n) * 0.5
+    xi[:, 4] = np.sin(np.arange(n) * 0.4) * 0.3
+    Rt, tt = se3_exp(torch.from_numpy(xi))
+    loops = rng.choice(n, (20, 2))
+    loops = loops[loops[:, 0] != loops[:, 1]]
+    ei = list(range(n - 1)) + loops[:, 0].tolist()
+    ej = list(range(1, n)) + loops[:, 1].tolist()
+    order = rng.permutation(len(ei))
+    ei, ej = [ei[k] for k in order], [ej[k] for k in order]
+    Ri, ti = se3_inverse(Rt[ei], tt[ei])
+    Rij, tij = se3_compose(Ri, ti, Rt[ej], tt[ej])
+    tij[0] += torch.tensor([1.5, 0.0, 0.0])
+    g = pad_edges(PoseGraph(torch.tensor(ei, dtype=torch.int32),
+                            torch.tensor(ej, dtype=torch.int32), Rij, tij,
+                            torch.ones(len(ei))), 48)
+    noise = torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32)
+                             * 0.05)
+    noise[0] = 0
+    return (*se3_compose(Rt, tt, *se3_exp(noise)), g)
+
+
+def run_four(hc, dm) -> dict:
+    """Sums of real-valued inputs, sharded PGO over ``data`` and
+    landmark-sharded BA over ("chip", "host") on four shards; the same
+    code runs in one process over four local shards."""
+    from akaze_tpu_torch import parallel as P
+    from akaze_tpu_torch.parallel import collectives as col
+
+    home = dm.home
+    g = real_input().to(home)
+    out = {"psum": torch.stack(col.psum(col.shard(g, dm), dm)),
+           "psum_home": col.psum_home(col.shard(g, dm), dm),
+           "hc_psum": torch.stack(col.psum(col.shard(g, hc, ("chip", "host")),
+                                           hc, ("chip", "host")))}
+    R0, t0, graph = pose_graph()
+    out["pgo_R"], out["pgo_t"], out["pgo_cost"] = \
+        P.sharded_optimize_pose_graph(R0, t0, graph, dm, iters=4,
+                                      cg_iters=20, robust="cauchy",
+                                      robust_delta=0.5)
+    R, t, X0, prob = make_problem()
+    part = P.partition_landmarks(prob, X0.shape[0], 4)
+    R1, t1, Xb, cost = P.landmark_sharded_bundle_adjust(
+        R, t, P.gather_points(part, X0), part, hc, iters=4, cg_iters=12,
+        axis=("chip", "host"))
+    out.update(ba_R=R1, ba_t=t1, ba_cost=cost,
+               ba_X=torch.as_tensor(P.scatter_points(part, col.all_gather(
+                   Xb, hc, ("chip", "host"), home_only=True))))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def card_programs() -> dict:
+    """On this process's card, over NCCL: the spatial program
+    (``Akaze(mesh)``), sharded PGO and landmark-sharded BA, each captured
+    (one graph per rank holding its kernels and the NCCL calls), its
+    replays equal to its eager call bit for bit with no host sync, and a
+    repeated call capturing no new key.  Returns the spatial features and
+    the captured keys' count."""
+    from torch.utils import _pytree as pytree
+    from akaze_tpu_torch import Akaze, AkazeConfig, programs
+    from akaze_tpu_torch import parallel as P
+
+    dm, hc = P.make_mesh(4), P.make_host_chip_mesh(4, 1)
+    home = dm.home
+    det = Akaze(AkazeConfig(max_pts=1024), mesh=dm)
+    img = torch.as_tensor(spatial_image(), device=home)
+    R0, t0, graph = pose_graph()
+    R0, t0 = R0.to(home), t0.to(home)
+    graph = type(graph)(*(f.to(home) for f in graph))
+    R, t, X0, prob = make_problem()
+    part = P.partition_landmarks(prob, X0.shape[0], 4)
+    Xg = P.gather_points(part, X0).to(home)
+    part = part._replace(prob=type(prob)(*(f.to(home) for f in part.prob)))
+    R, t = R.to(home), t.to(home)
+    calls = {
+        "spatial": lambda: det.detect_and_compute(img),
+        "pgo": lambda: P.sharded_optimize_pose_graph(
+            R0, t0, graph, dm, iters=4, cg_iters=20, robust="cauchy",
+            robust_delta=0.5),
+        "ba": lambda: P.landmark_sharded_bundle_adjust(
+            R, t, Xg, part, hc, iters=4, cg_iters=12, axis=("chip", "host"))}
+    out = {}
+    for name, fn in calls.items():
+        with programs.eager():
+            want = pytree.tree_leaves(fn())
+        fn()                                    # the capture
+        captures = sum(p.captures for p in programs.programs())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replays = [pytree.tree_leaves(fn()) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sum(p.captures for p in programs.programs()) == captures, name
+        for got in replays:
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        if name == "spatial":
+            f = fn()
+            for k in ("x", "y", "layer", "angle", "words", "valid", "count"):
+                out["spatial_" + k] = getattr(f, k).cpu().numpy()
+    keys = [s for s in programs.stats() if "Mesh(" in s["key"]]
+    assert keys and all(s["nccl"] and not s["eager"] for s in keys), keys
+    out["captured_keys"] = np.array(len(keys))
+    return out
+
+
+def leave_together(prefix: str, rank: int, world: int,
+                   timeout: float = 120.0) -> None:
+    """Exit once every rank has written its results (each after its card
+    finished its last collective), with no collective at teardown: the
+    NCCL ranks' graphs hold the communicator, and a barrier or
+    ``destroy_process_group`` there can wait forever."""
+    import time
+    open(f"{prefix}.{rank}.done", "w").close()
+    t0 = time.monotonic()
+    while not all(os.path.exists(f"{prefix}.{r}.done") for r in range(world)):
+        if time.monotonic() - t0 > timeout:
+            print(f"worker {rank}: the other ranks did not finish",
+                  flush=True)
+            os._exit(1)
+        time.sleep(0.05)
+    print(f"worker {rank} done", flush=True)
+    os._exit(0)
+
+
 def main():
     rank, port, prefix = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    world = int(sys.argv[4]) if len(sys.argv) > 4 else 2
+    card = len(sys.argv) > 5 and sys.argv[5] == "cuda"
     torch.set_num_threads(1)
     import torch.distributed as dist
     from akaze_tpu_torch import parallel as P
 
-    assert P.initialize_distributed(f"tcp://localhost:{port}", 2, rank)
+    assert P.initialize_distributed(
+        f"tcp://localhost:{port}", world, rank,
+        local_device_ids=[rank] if card else None)
     assert P.initialize_distributed()              # idempotent
+    if world == 4:
+        devices = None if card else ["cpu"]
+        out = run_four(P.make_host_chip_mesh(4, 1, devices=devices),
+                       P.make_mesh(4, devices=devices))
+        if card:
+            out.update(card_programs())
+            torch.cuda.synchronize()
+        np.savez(f"{prefix}.{rank}.npz", **out)
+        if card:
+            leave_together(prefix, rank, world)
+        dist.barrier()
+        dist.destroy_process_group()
+        print(f"worker {rank} done", flush=True)
+        return
     assert P.process_local_batch(8) == 4
     hc = P.make_host_chip_mesh(2, 4, devices=["cpu"] * 4)
     dm = P.make_mesh(8, devices=["cpu"] * 4)

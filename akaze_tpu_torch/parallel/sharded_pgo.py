@@ -12,7 +12,8 @@ the edge residual norms ([E] floats), so the norms are all-gathered.
 The solve is one compiled program (``_run_sharded_pgo``, JAX's static
 arguments: ``damping`` is static here, traced in the single-device
 ``optimize_pose_graph``, as in the JAX package): one CUDA graph per key
-on a mesh whose shards share one card (``programs.mesh_route``).
+on a mesh whose shards share one card, or lie on several cards of this
+process (``programs.mesh_route``).
 """
 
 from __future__ import annotations

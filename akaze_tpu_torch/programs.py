@@ -48,26 +48,49 @@ launches, warm-up and replays alike.
 Meshes.  A static value may be a ``parallel.Mesh`` (hashable, as JAX's
 static ``mesh``); traced arguments may then be per-shard lists of
 tensors or of named tuples.  Such a key is decided once, from the key
-alone and before any capture is tried (``mesh_route``): it is captured
-when the mesh's local shards and the traced tensors all lie on one CUDA
-device and every collective of the program that crosses processes (the
-program's ``collective_axes``, of its static values, that span a process
-axis: ``Mesh.spans_processes``) runs on NCCL, the group's backend for
-CUDA tensors.  Each rank then captures one graph holding its kernels and
-the NCCL collectives and point-to-point ops; the eager warm-up before
-the capture brings up every communicator, and the ranks must call their
-programs in one order (as they must call collectives).  A program
-without collectives, such as the data-parallel step, passes whatever the
-mesh.  A key whose shards all lie on the CPU takes the CPU path below.
-Every other key runs the function as it is, on every call: collectives
-across processes on gloo (a host-side backend that no graph can hold),
-and a mesh over several cards in one process (``torch.cuda.graph`` takes
-its stream and memory pool from one device, and such a graph would have
-to span four).  ``stats()`` lists those keys with ``eager=True`` and
-their calls, and a captured key whose collectives cross processes with
-``nccl=True``.  A key the rule captures and whose capture fails raises
+alone and before any capture is tried (``mesh_route``).  It is captured
+when the mesh's local shards and the traced tensors all lie on CUDA
+cards of the mesh and either
+
+* they lie on one card and every collective of the program that crosses
+  processes (the program's ``collective_axes``, of its static values,
+  that span a process axis: ``Mesh.spans_processes``) runs on NCCL, the
+  group's backend for CUDA tensors.  Each rank then captures one graph
+  holding its kernels and the NCCL collectives and point-to-point ops;
+  the eager warm-up before the capture brings up every communicator,
+  and the ranks must call their programs in one order (as they must
+  call collectives); or
+* the mesh lies in this process alone and spans several of its cards.
+  One graph then spans those cards (``key_cards``: the mesh's home
+  first, then its other cards in mesh order), as JAX's jit makes one
+  program over a mesh's devices: the warm-up and the capture run with
+  every card's side stream current, the capture begins on the home
+  card's and forks each other card's in by an event, and joins them
+  back before it ends; each card allocates into its own pool, and the
+  cross-card copies of the collectives are stream-ordered peer copies
+  inside the graph.
+
+A program without collectives, such as the data-parallel step, passes
+the first test whatever the mesh.  A key whose shards all lie on the
+CPU takes the CPU path below.  Every other key runs the function as it
+is, on every call: collectives across processes on gloo (a host-side
+backend that no graph can hold), a process's mesh over several cards
+that also spans processes (an NCCL rank drives one card), and keys that
+mix the CPU and a card or reach a card outside the mesh.  ``stats()``
+lists those keys with ``eager=True`` and their calls, a captured key
+whose collectives cross processes with ``nccl=True``, and every mesh
+key's ``cards``.  A key the rule captures and whose capture fails raises
 ``ProgramError`` as any other; nothing is retried eagerly.  A key
 without a mesh whose tensors lie on several devices raises.
+
+A replay of a key over several cards copies the inputs on each card's
+current stream, makes the home card's current stream wait on every
+other card's before the replay, and every other card's wait on the home
+card's after it, before the outputs are cloned on their own cards: the
+graph's work on a card is ordered with the work its callers queue on
+that card's current stream, as a one-card replay is.  Each card's pool
+is the one its own graphs share, so the rule above becomes: replays
+touching one card run in that card's stream order.
 
 On the CPU nothing is captured: a call whose tensors lie on the CPU (or
 that has no tensor) runs the function on its arguments.  ``eager()`` is
@@ -80,8 +103,7 @@ Python number as a multiply by its reciprocal, by a tensor as a
 division; and on the card it sees every traced tensor contiguous, as
 the input buffers hold it (a matmul rounds otherwise on a transposed
 operand, such as the rotations ``se3_inverse`` returns, so an eager call
-on the caller's strides would differ from the graph, and a mesh over
-four cards, which runs eagerly, from one card's captured mesh).
+on the caller's strides would differ from the graph).
 ``clear()`` drops every graph (the counterpart of
 ``jax.clear_caches()``).  The cache lives in each ``Program``, at module
 level, so every caller of one program shares its graphs (``Akaze``
@@ -123,6 +145,8 @@ def eager():
 def clear() -> None:
     """Drop every captured graph and the devices' memory pools."""
     for p in _PROGRAMS:
+        for e in p.entries.values():
+            e.release()
         p.entries.clear()
         p.eager_keys.clear()
     _POOLS.clear()
@@ -136,19 +160,39 @@ def programs() -> List["Program"]:
 def stats() -> list:
     """Per key: the program, the key's static values and tensor shapes,
     ``eager`` (True for a key the mesh rule runs eagerly), ``nccl`` (True
-    for a key whose collectives cross processes on NCCL), its calls and
-    replays, the bytes its capture added to the device's pool and its
+    for a key whose collectives cross processes on NCCL), ``cards`` (the
+    devices of a mesh key, home first: ``key_cards``; of another key its
+    device), its calls and replays, the bytes its capture added to the
+    pools (``pool_bytes``, and per card ``card_pool_bytes``) and its
     warm-up and capture seconds (0 for an eager key)."""
-    captured = [dict(program=p.name, key=describe_key(k), eager=False,
-                     nccl=p.crosses_on_nccl(k[0]), calls=e.replays + 1,
-                     replays=e.replays, pool_bytes=e.pool_bytes,
+    captured = [_row(p, k, eager=False, calls=e.replays + 1,
+                     replays=e.replays, card_pool_bytes=e.pool_bytes,
                      warmup_s=e.warmup_s, capture_s=e.capture_s)
                 for p in _PROGRAMS for k, e in p.entries.items()]
-    return captured + [dict(program=p.name, key=describe_key(k), eager=True,
-                            nccl=p.crosses_on_nccl(k[0]), calls=n,
-                            replays=0, pool_bytes=0, warmup_s=0.0,
+    return captured + [_row(p, k, eager=True, calls=n, replays=0,
+                            card_pool_bytes=None, warmup_s=0.0,
                             capture_s=0.0)
                        for p in _PROGRAMS for k, n in p.eager_keys.items()]
+
+
+def _row(program, key, card_pool_bytes, **fields) -> dict:
+    """A ``stats()`` row of ``program``'s ``key``."""
+    cards = [str(c) for c in _cards_of_key(key)]
+    per = card_pool_bytes or [0] * len(cards)
+    return dict(program=program.name, key=describe_key(key),
+                nccl=program.crosses_on_nccl(key[0]), cards=cards,
+                pool_bytes=sum(per), card_pool_bytes=list(per), **fields)
+
+
+def _cards_of_key(key) -> list:
+    """The devices of a key: a mesh key's ``key_cards``, else the device
+    of its tensors (the CPU where it has none)."""
+    statics, _, leaves = key
+    devices = [x[3] for x in leaves if x and x[0] == "tensor"]
+    mesh = next((v for _, v in statics if _is_mesh(v)), None)
+    if mesh is not None:
+        return key_cards(mesh, devices)
+    return [_card(devices[0])] if devices else [torch.device("cpu")]
 
 
 def describe_key(key) -> str:
@@ -189,20 +233,38 @@ def crossing_backend(mesh, collective_axes):
     return collective_backend(mesh.group)
 
 
+def key_cards(mesh, devices=()) -> list:
+    """The devices of a mesh key, each once: the mesh's local shards'
+    devices in mesh order (its home first), then those of the traced
+    tensors (``devices``) that lie outside them.  A capture over several
+    cards begins on the first."""
+    out = []
+    for d in list(mesh.local_devices) + list(devices):
+        d = _card(torch.device(d))
+        if d not in out:
+            out.append(d)
+    return out
+
+
 def mesh_route(mesh, devices, collective_axes) -> str:
     """How a key whose static values hold ``mesh`` runs, decided from the
-    key alone: ``"capture"`` when the mesh's local shards and the traced
-    tensors' ``devices`` all lie on one CUDA device and each collective
-    that crosses processes runs on NCCL (``collective_axes``: the axes of
-    the program's collectives, None for a program without any); ``"cpu"``
-    when they all lie on the CPU; else ``"eager"``."""
-    devs = {_card(torch.device(d))
-            for d in list(mesh.local_devices) + list(devices)}
-    if all(d.type == "cpu" for d in devs):
+    key alone (``devices``: the traced tensors' devices;
+    ``collective_axes``: the axes of the program's collectives, None for
+    a program without any).  ``"cpu"`` when the shards and tensors all
+    lie on the CPU; ``"capture"`` when they all lie on CUDA cards of the
+    mesh and either on one card, with each collective that crosses
+    processes on NCCL, or on several cards of a mesh that lies in this
+    process alone; else ``"eager"`` (see the module's docstring)."""
+    cards = key_cards(mesh, devices)
+    if all(d.type == "cpu" for d in cards):
         return "cpu"
-    one_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if (any(d.type != "cuda" for d in cards)
+            or len(cards) > len(key_cards(mesh))):
+        return "eager"
+    if len(cards) > 1:
+        return "capture" if mesh.process_count == 1 else "eager"
     ok = crossing_backend(mesh, collective_axes) in (None, "nccl")
-    return "capture" if one_card and ok else "eager"
+    return "capture" if ok else "eager"
 
 
 def _launch_counters():
@@ -245,6 +307,75 @@ def _pool(device):
     return _POOLS[device]
 
 
+@contextlib.contextmanager
+def _streams(cards, sides):
+    """Each card's side stream current on it, the first card current."""
+    with contextlib.ExitStack() as stack:
+        for s in sides[::-1]:
+            stack.enter_context(torch.cuda.stream(s))
+        stack.enter_context(torch.cuda.device(cards[0]))
+        yield
+
+
+def _wait(stream, others) -> None:
+    """``stream`` waits on the work queued so far on each of ``others``."""
+    for s in others:
+        ev = torch.cuda.Event()
+        ev.record(s)
+        stream.wait_event(ev)
+
+
+@contextlib.contextmanager
+def _allocating_to(card, pool, held):
+    """This thread's allocations on ``card`` go to ``pool`` inside the
+    block.  The use of the pool this takes (which keeps its memory for
+    the graph) is kept after the block and appended to ``held``, for the
+    graph's entry to release when it is dropped."""
+    torch._C._cuda_beginAllocateCurrentThreadToPool(card.index, pool)
+    held.append((card, pool))
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(card.index, pool)
+
+
+def _release(held) -> None:
+    """Give back the pool uses ``_allocating_to`` took."""
+    while held:
+        card, pool = held.pop()
+        torch._C._cuda_releasePool(card.index, pool)
+
+
+@contextlib.contextmanager
+def _capturing(graph, cards, sides, pools, held):
+    """A capture into ``graph`` that begins on the first card's side
+    stream, forks every other card's side stream in by an event (each
+    card allocating into its own pool, its side stream current: the
+    pools' uses go to ``held``) and joins them back before the capture
+    ends."""
+    origin, others = sides[0], sides[1:]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.cuda.device(cards[0]))
+        stack.enter_context(torch.cuda.graph(
+            graph, pool=pools[0], stream=origin,
+            capture_error_mode="thread_local"))
+        for c, s, p in zip(cards[1:], others, pools[1:]):
+            stack.enter_context(torch.cuda.stream(s))
+            stack.enter_context(_allocating_to(c, p, held))
+        stack.enter_context(torch.cuda.device(cards[0]))
+        for s in others:
+            _wait(s, [origin])
+        try:
+            yield
+        except BaseException:
+            # join what can be joined before the capture ends on the
+            # body's error
+            with contextlib.suppress(RuntimeError):
+                _wait(origin, others)
+            raise
+        _wait(origin, others)
+
+
 def _scalar(x, device):
     """Leaf ``x`` with a number made a 0-d tensor on ``device``."""
     if isinstance(x, (bool, int, float)):
@@ -274,11 +405,15 @@ def _fresh(leaves):
 
 
 class _Entry:
-    """One captured graph: its input buffers, outputs and measurements."""
+    """One captured graph: its cards (home first), input buffers, outputs,
+    the uses it holds of the other cards' pools, and measurements
+    (``pool_bytes``: per card)."""
 
-    def __init__(self, graph, inputs, outputs, out_spec, deltas,
-                 pool_bytes, warmup_s, capture_s):
+    def __init__(self, graph, cards, held, inputs, outputs, out_spec,
+                 deltas, pool_bytes, warmup_s, capture_s):
         self.graph = graph
+        self.cards = cards
+        self.held = held        # released when the entry is dropped
         self.inputs = inputs
         self.outputs = outputs
         self.out_spec = out_spec
@@ -288,13 +423,23 @@ class _Entry:
         self.capture_s = capture_s
         self.replays = 0
 
+    def release(self) -> None:
+        """Give back the other cards' pools (the graph gives back its own
+        card's when it is destroyed)."""
+        _release(self.held)
+
     def run(self, leaves):
         for buf, x in zip(self.inputs, leaves):
             if isinstance(x, torch.Tensor):
                 buf.copy_(x)
             elif buf is not None:
                 buf.fill_(x)
+        home = torch.cuda.current_stream(self.cards[0])
+        others = [torch.cuda.current_stream(c) for c in self.cards[1:]]
+        _wait(home, others)
         self.graph.replay()
+        for s in others:
+            _wait(s, [home])
         for fn, n in self.deltas:
             fn.launches += n
         self.replays += 1
@@ -359,18 +504,20 @@ class Program:
         return mesh is not None and crossing_backend(mesh, axes) == "nccl"
 
     def _route(self, statics, leaves):
-        """(route, the call's device)."""
+        """(route, the device of the call's numbers, its cards)."""
         mesh, axes = self._axes(statics)
         if mesh is None:
             device = _program_device(self.name, leaves)
-            return ("capture" if device.type == "cuda" else "cpu"), device
+            return ("capture" if device.type == "cuda" else "cpu"), device, \
+                [device]
         devices = [x.device for x in leaves if isinstance(x, torch.Tensor)]
         return (mesh_route(mesh, devices, axes),
-                _card(devices[0] if devices else mesh.home))
+                _card(devices[0] if devices else mesh.home),
+                key_cards(mesh, devices))
 
     def __call__(self, *args, **kwargs):
         key, leaves, statics, spec = self.key(*args, **kwargs)
-        route, device = self._route(statics, leaves)
+        route, device, cards = self._route(statics, leaves)
         if route == "eager":
             self.eager_keys[key] = self.eager_keys.get(key, 0) + 1
         if _EAGER or route != "capture":
@@ -378,37 +525,40 @@ class Program:
                               [_eager_input(x, device) for x in leaves])
         entry = self.entries.get(key)
         if entry is None:
-            return self._capture(key, leaves, statics, spec, device)
+            return self._capture(key, leaves, statics, spec, device, cards)
         self.replays += 1
         return entry.run(leaves)
 
     def _call(self, statics, spec, inputs):
         return self.fn(**dict(statics), **pytree.tree_unflatten(inputs, spec))
 
-    def _capture(self, key, leaves, statics, spec, device):
-        caller = torch.cuda.current_stream(device)
-        side = _side_stream(device)
-        side.wait_stream(caller)
+    def _capture(self, key, leaves, statics, spec, device, cards):
+        callers = [torch.cuda.current_stream(c) for c in cards]
+        sides = [_side_stream(c) for c in cards]
+        for side, caller in zip(sides, callers):
+            side.wait_stream(caller)
         t0 = time.perf_counter()
-        with torch.cuda.device(device), torch.cuda.stream(side):
+        with _streams(cards, sides):
             inputs = [_buffer(x, device) for x in leaves]
             warm, warm_spec = pytree.tree_flatten(
                 self._call(statics, spec, inputs))
         t1 = time.perf_counter()
         counters = _launch_counters()
         before = [fn.launches for fn in counters]
+        pools = [_pool(c) for c in cards]
+        held = []
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    graph, pool=_pool(device), stream=side,
-                    capture_error_mode="thread_local"):
-                reserved = torch.cuda.memory_reserved(device)
+            with _capturing(graph, cards, sides, pools, held):
+                reserved = [torch.cuda.memory_reserved(c) for c in cards]
                 outputs, out_spec = pytree.tree_flatten(
                     self._call(statics, spec, inputs))
         except RuntimeError as e:
-            # the failed capture leaves its pool marked as being captured
-            # into, so later captures of the device take a new pool
-            _POOLS.pop(device, None)
+            # the failed capture leaves its pools marked as being captured
+            # into, so later captures of those cards take new pools
+            _release(held)
+            for c in cards:
+                _POOLS.pop(c, None)
             raise ProgramError(f"{self.name}: capture of "
                                f"[{describe_key(key)}] failed: {e}") from e
         finally:
@@ -416,15 +566,18 @@ class Program:
                       for fn, n in zip(counters, before)]
             for fn, n in zip(counters, before):
                 fn.launches = n
-        pool = torch.cuda.memory_reserved(device) - reserved
-        self.entries[key] = _Entry(graph, inputs, outputs, out_spec,
+        pool = [torch.cuda.memory_reserved(c) - r
+                for c, r in zip(cards, reserved)]
+        self.entries[key] = _Entry(graph, cards, held, inputs, outputs,
+                                   out_spec,
                                    [(fn, n) for fn, n in deltas if n],
                                    pool, t1 - t0, time.perf_counter() - t1)
         self.captures += 1
-        caller.wait_stream(side)
+        for side, caller in zip(sides, callers):
+            caller.wait_stream(side)
         for x in warm:
             if isinstance(x, torch.Tensor):
-                x.record_stream(caller)
+                x.record_stream(torch.cuda.current_stream(x.device))
         return pytree.tree_unflatten(_fresh(warm), warm_spec)
 
 

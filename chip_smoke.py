@@ -145,9 +145,10 @@ any disagreement:
 never skips, with fewer): the card names and power limits, how the cards
 are joined (``nvidia-smi topo -m`` or NVLink's link states, peer access,
 a card-to-card copy rate); the kernels' build; then with one process over
-cuda:0..3 (``make_mesh(4)``; these keys run eagerly by
-``programs.mesh_route``'s rule) every mesh path held bit for bit against
-the same mesh with its four shards on cuda:0: the spatial tier on the
+cuda:0..3 (``make_mesh(4)``; by ``programs.mesh_route``'s rule each key is
+one captured graph over the four cards) every mesh path, eager
+(``programs.eager()``) and captured, held bit for bit against the same
+mesh with its four shards on cuda:0: the spatial tier on the
 960x1280 pair in all four flavours (the float flavour is the main path:
 launch counters reset before and read after, K1/K2 launches per card as
 ``spatial_route`` predicts) and on a 1920x2560 pair, ``sharded_match`` at
@@ -155,10 +156,14 @@ launch counters reset before and read after, K1/K2 launches per card as
 observation- and landmark-sharded BA at the SLAM cell's sizes,
 ``SlamSystem(mesh=make_mesh(4))`` on the TUM route, the CLI with
 ``--spatial 4 --device cuda``, ``dryrun_multichip(4)``; K1, K2 and K4
-against their plain versions on each card's own launches; each path's
-times with each card's idle share; the peak device memory per card of one
-image unsharded against row-sharded over four cards (1920x2560 and the
-largest size up to 3840x5120 the spatial tier takes); then four processes
+against their plain versions on each card's own launches (recorded on an
+eager call); replays equal to the eager call, no host sync in a replay,
+no new key on a repeat, each key captured over the four cards with the
+MiB it added to each card's pool; each path's times eager and captured in
+turns with each card's idle share; the peak device memory per card of one
+image unsharded against row-sharded over four cards, eager and captured
+(1920x2560 and the largest size up to 3840x5120 the spatial tier takes);
+then four processes
 of one card each (this script with ``--worker``,
 ``initialize_distributed(..., local_device_ids=[rank])``, NCCL): the
 spatial program, ``sharded_match``, ``dp_pipeline_step_multihost``,
@@ -168,7 +173,8 @@ with its NCCL calls (replays = eager, no host sync, no new key on a
 repeat), eager and captured times in turns with the idle share per rank.
 Its kernels line holds the four-card rows (``*_cards4``: per card per
 pair of the spatial main path; ``*_cards4_dp``: per card per dp step;
-``hamming_kernel_cards4_sharded_match``: per card per call).
+both profiled from replays; ``hamming_kernel_cards4_sharded_match``: per
+card per call, eager as ``sharded_match`` is no program).
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -3245,16 +3251,111 @@ def expect_by_card(cards, by_card, each, tag):
         check(got == each, f"[{tag}] {c} launched {got}, want {each}")
 
 
+def hold_cards(torch, cards, fn, tag, calls=2):
+    """``fn`` (one call of a mesh path over ``cards``) against the same
+    call under ``programs.eager()``: the first call (a capture, or a replay
+    of a key captured before) and ``calls`` replays equal the eager output
+    bit for bit and add no key; one replay runs under
+    ``set_sync_debug_mode("error")``; an op on each output's card, issued
+    straight after a replay, reads that replay's values; and a call's
+    outputs on every card are unchanged by the next call.  No kernel's
+    plain version runs.  Returns the eager output."""
+    from akaze_tpu_torch import programs
+    with no_plain_versions():
+        with programs.eager():
+            want = fn()
+        first = fn()
+        sync_all(torch, cards)
+        captures = sum(p.captures for p in programs.programs())
+        outs = []
+        for i in range(calls):
+            if i == 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn()
+            except RuntimeError as e:
+                fail(f"[{tag}] a replay over {len(cards)} cards "
+                     f"synchronised: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs.append((got, [x.clone() for x in pytree_leaves(got)]))
+        sync_all(torch, cards)
+    new = sum(p.captures for p in programs.programs()) - captures
+    check(new == 0, f"[{tag}] a repeated call captured {new} new keys")
+    equal_outputs(torch, first, want, tag)
+    for got, read in outs:
+        equal_outputs(torch, got, want, tag)
+        equal_outputs(torch, read, pytree_leaves(want), tag + " read")
+    return want
+
+
+def cards_turns(torch, cards, fn, reps=5):
+    """``fn`` eager (``programs.eager()``) and captured in turns, walls
+    with every card synchronised, and per form each card's kernels and
+    idle share (``profile_cards`` of one call against the form's median
+    wall)."""
+    from akaze_tpu_torch import programs
+    out = dict(eager_ms=[], captured_ms=[])
+    with no_plain_versions():
+        for _ in range(reps):
+            with programs.eager():
+                out["eager_ms"] += wall_times(torch, fn, cards, 1, 0)
+            out["captured_ms"] += wall_times(torch, fn, cards, 1, 0)
+        for kind in ("eager", "captured"):
+            with (programs.eager() if kind == "eager"
+                  else contextlib.nullcontext()):
+                prof = profile_cards(torch, fn, 1, cards)
+            out[f"{kind}_prof"] = prof
+            out[f"{kind}_idle"] = idle_by_card(
+                prof, float(np.median(out[f"{kind}_ms"])), cards)
+    return out
+
+
+def cards_turns_line(r) -> str:
+    return (f"eager {spread(r['eager_ms'])} (idle per card "
+            f"{', '.join(f'{x:.3f}' for x in r['eager_idle'])}), captured "
+            f"{spread(r['captured_ms'])} (idle "
+            f"{', '.join(f'{x:.3f}' for x in r['captured_idle'])}), in turns")
+
+
+def cards_keys(torch, cards, names, tag):
+    """Fails unless the programs ``names`` (the last part of their names)
+    have a key over ``cards`` and each such key is captured
+    (``eager=False``); prints each key's capture seconds and the MiB it
+    added to each card's pool (once per key)."""
+    from akaze_tpu_torch import programs
+    want = [str(c) for c in cards]
+    rows = [r for r in programs.stats() if r["cards"] == want
+            and r["program"].rsplit(".", 1)[1] in names]
+    check(rows and all(not r["eager"] for r in rows),
+          f"[{tag}] keys over {want}: {rows}")
+    for r in rows:
+        if (r["program"], r["key"]) in PRINTED_KEYS:
+            continue
+        PRINTED_KEYS.add((r["program"], r["key"]))
+        print(f"[{tag} key] {r['program'].rsplit('.', 1)[1]} "
+              f"[{r['key'][:80]}]: eager={r['eager']}, cards "
+              f"{', '.join(r['cards'])}, warm-up {r['warmup_s']:.3f} s, "
+              f"capture {r['capture_s']:.3f} s, pool + "
+              f"{', '.join(f'{b / 2**20:.1f}' for b in r['card_pool_bytes'])}"
+              f" MiB per card, {r['replays']} replays")
+
+
 def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
                         profile_flavour=None):
     """The spatial tier over cuda:0..3 in one process (``Akaze(mesh=
-    make_mesh(4))``; eager, by ``programs.mesh_route``'s rule) on one pair
-    of ``size`` per flavour: features and matches bit for bit those of the
-    same mesh with its four shards on cuda:0; K1/K2 launches per card as
-    ``spatial_route`` predicts; K1 and K2 against their plain versions on
-    each card's own inputs; the known shift recovered; per image the
-    four-card and one-card times (wall, every card synchronised) and, for
-    ``profile_flavour``, each card's kernel times and idle share."""
+    make_mesh(4))``; one graph over the four cards per key, by
+    ``programs.mesh_route``'s rule) on one pair of ``size`` per flavour:
+    the eager call (``programs.eager()``) with K1/K2 launches per card as
+    ``spatial_route`` predicts and K1 and K2 against their plain versions
+    on each card's own recorded inputs; the captured call and its replays
+    (``hold_cards``) with the eager call's launch counts; features and
+    matches of both bit for bit those of the same mesh with its four
+    shards on cuda:0; the known shift recovered; the keys captured over
+    the four cards with each card's pool; per image eager and captured in
+    turns with each card's idle share, and one card's times beside; for
+    ``profile_flavour``, each card's kernel times from replays of the
+    pair."""
     from akaze_tpu_torch import Akaze, programs
     from akaze_tpu_torch.ops import describe as k2mod
     from akaze_tpu_torch.parallel import (make_mesh, spatial,
@@ -3263,7 +3364,7 @@ def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
     out = {}
     for name, (fixed, cfg) in flavours.items():
         tag = f"cards spatial {h}x{w} {name}"
-        a, b = pairs[fixed]
+        a, b = (torch.as_tensor(x, device=cards[0]) for x in pairs[fixed])
         one = Akaze(cfg, fixed=fixed, mesh=one_card_mesh(cards))
         four = Akaze(cfg, fixed=fixed, mesh=make_mesh(CARDS))
         check(four.mesh.local_devices == cards,
@@ -3272,36 +3373,48 @@ def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
         wm = one.match(*want)
         plan = four.plan_for(h, w)
         per = spatial_launches(plan, CARDS)
+        # the match runs once, on the mesh's first card (the one-card
+        # mesh's match key)
+        each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
+                "describe": 2}
+        total = dict({k: CARDS * v for k, v in each.items()}, hamming=1)
         for fn in counters().values():
             fn.launches = 0
-        with no_plain_versions(), launches_by_card() as by_card, \
+        with programs.eager(), no_plain_versions(), \
+                launches_by_card() as by_card, \
                 recording(spatial, "sublevel") as tiled, \
                 recording(spatial, "octave") as resident, \
                 recording(k2mod, "_launch") as k2calls:
+            eager = four.detect_and_compute_pair(a, b)
+            em = four.match(*eager)
+            sync_all(torch, cards)
+        check(launch_counts() == total,
+              f"[{tag}] eager launches {launch_counts()}")
+        expect_by_card(cards, by_card, each, tag)
+        equal_outputs(torch, (eager, em), (want, wm), tag + " eager")
+        for fn in counters().values():
+            fn.launches = 0
+        with no_plain_versions():
             got = four.detect_and_compute_pair(a, b)
             m = four.match(*got)
             sync_all(torch, cards)
-        launches = launch_counts()
-        # the match runs once, on the mesh's first card (a replay of the
-        # one-card mesh's match key: no Python runs to count it per card)
-        each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
-                "describe": 2}
-        expect_by_card(cards, by_card, each, tag)
-        check(launches == dict({k: CARDS * v for k, v in each.items()},
-                               hamming=1), f"[{tag}] launches {launches}")
+        check(launch_counts() == total,
+              f"[{tag}] captured launches {launch_counts()}")
         check(four.spatial_fallbacks == 0, f"[{tag}] fell back")
         equal_outputs(torch, (got, m), (want, wm), tag)
+        hold_cards(torch, cards, lambda: four.detect_and_compute_pair(a, b),
+                   tag)
+        cards_keys(torch, cards, ("_jit_spatial_detect_and_compute",), tag)
         inl = (shift_recovered(torch, got[0], m, shift, tag)
                if shift is not None else float("nan"))
         checks = per_card_checks(torch, cards, tiled, resident, k2calls,
                                  None, fixed, tag)
-        at = torch.as_tensor(a, device=cards[0])
-        t4 = wall_times(torch, lambda: four.detect_and_compute(at), cards)
-        t1 = wall_times(torch, lambda: one.detect_and_compute(at), cards)
+        turns = cards_turns(torch, cards, lambda: four.detect_and_compute(a))
+        t1 = wall_times(torch, lambda: one.detect_and_compute(a), cards)
         with programs.eager():
-            t1e = wall_times(torch, lambda: one.detect_and_compute(at),
+            t1e = wall_times(torch, lambda: one.detect_and_compute(a),
                              cards)
-        r = dict(launches=by_card, checks=checks, four_ms=t4, one_ms=t1,
+        r = dict(launches=by_card, checks=checks, turns=turns, one_ms=t1,
                  one_eager_ms=t1e)
         line = ""
         if name == profile_flavour:
@@ -3310,26 +3423,28 @@ def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
             def pair():
                 return four.match(*four.detect_and_compute_pair(a, b))
 
-            tp = wall_times(torch, pair, cards)
-            prof = profile_cards(torch, pair)
-            r.update(prof=prof, pair_ms=tp,
-                     idle=idle_by_card(prof, float(np.median(tp)), cards))
+            pt = cards_turns(torch, cards, pair, reps=3)
+            prof = pt["captured_prof"]
+            r.update(prof=prof, pair_turns=pt, idle=pt["captured_idle"])
             k1n = ("tiled_kernel" + needle, "octave_kernel" + needle)
-            line = ("; per pair " + spread(tp) + ", per card device K1 / K2 "
-                    "ms and idle share: " + ", ".join(
+            line = ("; per pair " + cards_turns_line(pt) + ", per card "
+                    "device K1 / K2 ms of a replay: " + ", ".join(
                         f"{c} {card_ms(prof, c, k1n):.4f} / "
-                        f"{card_ms(prof, c, ('describe_kernel',)):.4f}, "
-                        f"{i:.3f}" for c, i in zip(cards, r["idle"])))
+                        f"{card_ms(prof, c, ('describe_kernel',)):.4f}"
+                        for c in cards))
         out[name] = r
         print(f"[{tag}] over {', '.join(map(str, cards))} in one process: "
+              f"one graph over the four cards per key; eager and captured "
               f"features and matches equal bit for bit to the same mesh on "
-              f"{cards[0]} alone; launches per card {by_card[str(cards[0])]} "
-              f"on {cards[0]}, {by_card[str(cards[1])]} on each other card "
-              f"= the route {spatial_route(plan, CARDS)}; K1 and K2 = plain "
-              f"on every card's inputs; shift recovered (inliers "
-              f"{inl:.4f}); per image four cards {spread(t4)} (eager), one "
-              f"card {spread(t1)} (captured), {spread(t1e)} (eager)"
-              f"{line}; cards: {card}")
+              f"{cards[0]} alone, replays = eager, no host sync in a replay, "
+              f"no new key on a repeat; launches per card (eager) "
+              f"{by_card[str(cards[0])]} on {cards[0]}, "
+              f"{by_card[str(cards[1])]} on each other card = the route "
+              f"{spatial_route(plan, CARDS)}, the same totals captured; K1 "
+              f"and K2 = plain on every card's inputs; shift recovered "
+              f"(inliers {inl:.4f}); per image four cards "
+              f"{cards_turns_line(turns)}; one card {spread(t1)} "
+              f"(captured), {spread(t1e)} (eager){line}; cards: {card}")
     return out
 
 
@@ -3384,10 +3499,13 @@ def dp_inputs(torch, dev):
 
 def phase_cards_dp(torch, cards, card):
     """``dp_pipeline_step``: 8 pairs of 960x1280 over cuda:0..3, two per
-    card; every output equal bit for bit to the one-card four-shard
-    mesh's; K1 13, K2 1, K4 1 launches per pair on each card; K1, K2 and
-    K4 against their plain versions on each card's launches."""
-    from akaze_tpu_torch import Akaze, AkazeConfig, scale_space
+    card, one graph over the four cards: the eager step with K1 13, K2 1,
+    K4 1 launches per pair on each card and K1, K2 and K4 against their
+    plain versions on each card's launches; the captured step and its
+    replays (``hold_cards``); every output of both equal bit for bit to
+    the one-card four-shard mesh's; eager and captured in turns with each
+    card's idle share, the kernel rows from replays."""
+    from akaze_tpu_torch import Akaze, AkazeConfig, programs, scale_space
     from akaze_tpu_torch.ops import describe as k2mod
     from akaze_tpu_torch.ops import hamming as k4mod
     from akaze_tpu_torch.parallel import dp_pipeline_step, make_mesh
@@ -3396,37 +3514,49 @@ def phase_cards_dp(torch, cards, card):
     plan = Akaze(AkazeConfig(max_pts=MAX_PTS), device=cards[0]).plan_for(H, W)
     four = make_mesh(CARDS)
     want = dp_pipeline_step(at, bt, plan, one_card_mesh(cards))
+    pairs = DP_PAIRS // CARDS
     for fn in counters().values():
         fn.launches = 0
-    with no_plain_versions(), launches_by_card() as by_card, \
+    with programs.eager(), no_plain_versions(), \
+            launches_by_card() as by_card, \
             recording(scale_space, "octave") as octaves, \
             recording(k2mod, "_launch") as k2calls, \
             recording(k4mod, "_launch") as k4calls:
-        got = dp_pipeline_step(at, bt, plan, four)
+        eager = dp_pipeline_step(at, bt, plan, four)
         sync_all(torch, cards)
-    pairs = DP_PAIRS // CARDS
+    total = launch_counts()
     expect_by_card(cards, by_card, {k: pairs * v for k, v in
                                     MAIN_LAUNCHES.items()}, tag)
-    check([f.x.device for f in got[0]] == cards, f"[{tag}] shards")
-    equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(got)],
-                  pytree_leaves(want), tag)
+    check([f.x.device for f in eager[0]] == cards, f"[{tag}] shards")
+    equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(eager)],
+                  pytree_leaves(want), tag + " eager")
     checks = per_card_checks(torch, cards, [], octaves, k2calls, k4calls,
                              False, tag)
 
     def step():
         return dp_pipeline_step(at, bt, plan, four)
 
-    t4 = wall_times(torch, step, cards, reps=3)
-    prof = profile_cards(torch, step, reps=1)
-    idle = idle_by_card(prof, float(np.median(t4)), cards)
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions():
+        got = step()
+        sync_all(torch, cards)
+    check(launch_counts() == total, f"[{tag}] captured launches "
+          f"{launch_counts()}, eager {total}")
+    equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(got)],
+                  pytree_leaves(want), tag)
+    hold_cards(torch, cards, step, tag)
+    cards_keys(torch, cards, ("_dp_step",), tag)
+    turns = cards_turns(torch, cards, step, reps=3)
     print(f"[{tag}] {DP_PAIRS} pairs of {H}x{W} over {CARDS} cards, "
-          f"{pairs} per card: every output equal bit for bit to the "
-          f"one-card mesh's; launches per card {by_card[str(cards[0])]}; "
-          f"K1, K2 and K4 = plain on every card's launches; step "
-          f"{spread(t4)} (eager); idle share per card "
-          f"{', '.join(f'{x:.3f}' for x in idle)}; cards: {card}")
-    return dict(launches=by_card, checks=checks, prof=prof, idle=idle,
-                step_ms=t4)
+          f"{pairs} per card, one graph over the four: eager and captured "
+          f"outputs equal bit for bit to the one-card mesh's, replays = "
+          f"eager, no host sync, no new key; launches per card "
+          f"{by_card[str(cards[0])]} (eager; the same totals captured); K1, "
+          f"K2 and K4 = plain on every card's launches; step "
+          f"{cards_turns_line(turns)}; cards: {card}")
+    return dict(launches=by_card, checks=checks, prof=turns["captured_prof"],
+                idle=turns["captured_idle"], turns=turns)
 
 
 def pytree_leaves(x) -> list:
@@ -3467,8 +3597,10 @@ def solver_calls(torch, dev, mesh, hc):
 def phase_cards_solvers(torch, cards, card):
     """Sharded PGO (16 poses, 32 edge slots, the SLAM cell's robust loss)
     and observation- and landmark-sharded BA (5 cameras, 512 points) over
-    cuda:0..3: every output equal bit for bit to the one-card four-shard
-    mesh's; times per call (eager) against the one card's (captured)."""
+    cuda:0..3, each one graph over the four cards: eager and captured
+    outputs (``hold_cards``) equal bit for bit to the one-card four-shard
+    mesh's; per call eager and captured in turns with each card's idle
+    share, and the one card's (captured) beside."""
     from akaze_tpu_torch.parallel import make_host_chip_mesh, make_mesh
     one = one_card_mesh(cards)
     ones = solver_calls(torch, cards[0], one,
@@ -3476,62 +3608,81 @@ def phase_cards_solvers(torch, cards, card):
                                             * CARDS))
     fours = solver_calls(torch, cards[0], make_mesh(CARDS),
                          make_host_chip_mesh(CARDS, 1))
+    names = {"pgo": "_run_sharded_pgo", "ba observations": "_run_sharded_ba",
+             "ba landmarks": "_run_landmark_sharded_ba"}
     out = {}
     for name, fn in fours.items():
         tag = f"cards {name}"
         want = ones[name]()
-        with no_plain_versions():
-            got = fn()
-        sync_all(torch, cards)
-        equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(got)],
+        eager = hold_cards(torch, cards, fn, tag)
+        equal_outputs(torch, [x.to(cards[0]) for x in pytree_leaves(eager)],
                       pytree_leaves(want), tag)
-        t4 = wall_times(torch, fn, cards, reps=3)
+        cards_keys(torch, cards, (names[name],), tag)
+        turns = cards_turns(torch, cards, fn, reps=3)
         t1 = wall_times(torch, ones[name], cards, reps=3)
-        prof = profile_cards(torch, fn, reps=1)
-        idle = idle_by_card(prof, float(np.median(t4)), cards)
-        out[name] = dict(four_ms=t4, one_ms=t1, idle=idle)
-        print(f"[{tag}] over {CARDS} cards: every output equal bit for bit "
-              f"to the one-card mesh's; per call {spread(t4)} (eager), one "
-              f"card {spread(t1)} (captured); idle share per card "
-              f"{', '.join(f'{x:.3f}' for x in idle)}; cards: {card}")
+        out[name] = dict(turns=turns, one_ms=t1)
+        print(f"[{tag}] over {CARDS} cards, one graph over the four: eager "
+              f"and captured outputs equal bit for bit to the one-card "
+              f"mesh's, replays = eager, no host sync, no new key; per call "
+              f"{cards_turns_line(turns)}; one card {spread(t1)} "
+              f"(captured); cards: {card}")
     return out
 
 
 def phase_cards_slam(torch, cards, card, frames):
     """``SlamSystem(mesh=make_mesh(4))`` on the TUM RGB-D route over
-    cuda:0..3: keyframes (indices, poses, words) and edges equal bit for
-    bit to the same route on the one-card four-shard mesh; K1 and K2 on
-    every card on every frame; frame times side by side."""
+    cuda:0..3, eagerly (``programs.eager()``; K1 and K2 on every card on
+    every frame) and with its programs (every mesh key one graph over the
+    four cards), twice: keyframes (indices, poses, words) and edges of
+    every run equal bit for bit to the same route on the one-card
+    four-shard mesh; the second captured route captures no new key;
+    frame times side by side."""
+    from akaze_tpu_torch import programs
     from akaze_tpu_torch.parallel import make_mesh
     tag = "cards slam"
     one = timed_route(torch, cards[0], frames, one_card_mesh(cards))
-    with no_plain_versions(), launches_by_card() as by_card:
+    with programs.eager(), no_plain_versions(), \
+            launches_by_card() as by_card:
+        eager = timed_route(torch, cards[0], frames, make_mesh(CARDS))
+    with no_plain_versions():
+        first = timed_route(torch, cards[0], frames, make_mesh(CARDS))
+        captures = sum(p.captures for p in programs.programs())
         four = timed_route(torch, cards[0], frames, make_mesh(CARDS))
-    check(same_map(four[0], one[0]), f"[{tag}] the four-card route differs "
-          f"from the one-card mesh's")
+    new = sum(p.captures for p in programs.programs()) - captures
+    check(new == 0, f"[{tag}] a repeated route captured {new} new keys")
+    for name, run in (("eager", eager), ("first captured", first),
+                      ("captured", four)):
+        check(same_map(run[0], one[0]), f"[{tag}] the {name} four-card "
+              f"route differs from the one-card mesh's")
     for c in cards:
         n = by_card.get(str(c), {})
         check(n.get("tiled", 0) > 0 and n.get("describe", 0) == len(frames),
               f"[{tag}] {c} launched {n}")
-    e, c1 = four, one
+    cards_keys(torch, cards, ("_jit_spatial_detect_and_compute",), tag)
+    e, c4, c1 = eager, four, one
     print(f"[{tag}] {len(frames)} frames over {CARDS} cards: keyframes and "
-          f"edges equal bit for bit to the one-card mesh's; launches per "
-          f"card {by_card}; median tracked frame {np.median(e[1]):.3f} ms "
-          f"(one card captured {np.median(c1[1]):.3f}), keyframe frame "
-          f"{np.median(e[2]):.3f} / {np.median(c1[2]):.3f} ms, PGO per call "
-          f"{e[3]:.3f} / {c1[3]:.3f} ms, local BA {e[4]:.3f} / {c1[4]:.3f} "
-          f"ms; cards: {card}")
+          f"edges of the eager and both captured routes equal bit for bit "
+          f"to the one-card mesh's; no new key on the second captured "
+          f"route; launches per card (eager) {by_card}; median tracked "
+          f"frame eager {np.median(e[1]):.3f} / captured "
+          f"{np.median(c4[1]):.3f} ms (one card captured "
+          f"{np.median(c1[1]):.3f}), keyframe frame {np.median(e[2]):.3f} / "
+          f"{np.median(c4[2]):.3f} / {np.median(c1[2]):.3f} ms, PGO per "
+          f"call {e[3]:.3f} / {c4[3]:.3f} / {c1[3]:.3f} ms, local BA "
+          f"{e[4]:.3f} / {c4[4]:.3f} / {c1[4]:.3f} ms; cards: {card}")
     return dict(tracked_ms=float(np.median(e[1])),
+                captured_tracked_ms=float(np.median(c4[1])),
                 one_tracked_ms=float(np.median(c1[1])))
 
 
 def phase_cards_cli(torch, cards, card, raw_pair):
     """The CLI as a user runs it over four cards: ``--spatial 4 --device
-    cuda`` (the first four cards) in this process, its counts equal to
-    ``--spatial 4 --device cuda:0``'s, K1 and K2 launched on every
-    card."""
+    cuda`` (the first four cards) in this process, with its programs
+    (each key one graph over the four cards), again (no new key), and
+    under ``programs.eager()`` (K2 launched on every card); every run's
+    counts equal to ``--spatial 4 --device cuda:0``'s."""
     import io
-    from akaze_tpu_torch import cli
+    from akaze_tpu_torch import cli, programs
     from akaze_tpu_torch.io import save_pgm
     tag = "cards cli"
     recs = {}
@@ -3539,29 +3690,40 @@ def phase_cards_cli(torch, cards, card, raw_pair):
         lp, rp = os.path.join(tmp, "l.pgm"), os.path.join(tmp, "r.pgm")
         save_pgm(lp, raw_pair[0])
         save_pgm(rp, raw_pair[1])
-        for dev in ("cuda", str(cards[0])):
+        for run, dev in (("captured", "cuda"), ("again", "cuda"),
+                         ("eager", "cuda"), ("one card", str(cards[0]))):
             buf = io.StringIO()
+            captures = sum(p.captures for p in programs.programs())
             with contextlib.redirect_stdout(buf), no_plain_versions(), \
+                    (programs.eager() if run == "eager"
+                     else contextlib.nullcontext()), \
                     launches_by_card() as by_card:
                 cli.main(["--left", lp, "--right", rp, "--json", "--iters",
                           "2", "--no-draw", "--spatial", str(CARDS),
                           "--device", dev])
             sync_all(torch, cards)
-            recs[dev] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
-                         {k: v["describe"] for k, v in by_card.items()})
-    (four, n4), (one, _) = recs["cuda"], recs[str(cards[0])]
-    counts = [(r["left_pts"], r["right_pts"], r["matches"])
-              for r in (four, one)]
-    check(counts[0] == counts[1] and counts[0][2] > 500,
-          f"[{tag}] counts {counts[0]} over four cards, {counts[1]} on one")
+            new = sum(p.captures for p in programs.programs()) - captures
+            recs[run] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                         {k: v["describe"] for k, v in by_card.items()}, new)
+    check(recs["again"][2] == 0, f"[{tag}] a second run captured "
+          f"{recs['again'][2]} new keys")
+    counts = {run: (r["left_pts"], r["right_pts"], r["matches"])
+              for run, (r, _, _) in recs.items()}
+    check(len(set(counts.values())) == 1 and counts["one card"][2] > 500,
+          f"[{tag}] counts {counts}")
+    n4 = recs["eager"][1]
     check(sorted(n4) == sorted(map(str, cards)) and len(set(n4.values()))
           == 1, f"[{tag}] K2 launches per card {n4}")
+    cards_keys(torch, cards, ("_jit_spatial_detect_and_compute",), tag)
+    four, eager, one = (recs[k][0] for k in ("again", "eager", "one card"))
     print(f"[{tag}] --spatial {CARDS} --device cuda: {json.dumps(four)}; "
-          f"counts equal to --device {cards[0]}'s {counts[1]}; K2 launches "
-          f"per card {n4}; detect_pair_ms {four['detect_pair_ms']} (four "
-          f"cards, eager) / {one['detect_pair_ms']} (one card, captured); "
-          f"cards: {card}")
-    return dict(four=four, one=one)
+          f"counts of the captured, repeated and eager runs equal to "
+          f"--device {cards[0]}'s {counts['one card']}; no new key on the "
+          f"repeat; K2 launches per card (eager) {n4}; detect_pair_ms "
+          f"{four['detect_pair_ms']} (four cards, captured) / "
+          f"{eager['detect_pair_ms']} (four cards, eager) / "
+          f"{one['detect_pair_ms']} (one card, captured); cards: {card}")
+    return dict(four=four, eager=eager, one=one)
 
 
 def phase_cards_dryrun(torch, cards):
@@ -3577,14 +3739,51 @@ def phase_cards_dryrun(torch, cards):
     return four
 
 
+def phase_cards_programs(torch, cards, card):
+    """After the one-process paths: every program key is captured (none
+    eager), and the keys over the four cards, per program, with the MiB
+    their captures added to each card's pool."""
+    from akaze_tpu_torch import programs
+    stats = programs.stats()
+    eager = [r for r in stats if r["eager"]]
+    check(not eager, f"[cards programs] keys run eagerly: {eager}")
+    want = [str(c) for c in cards]
+    per = {}
+    for r in stats:
+        if r["cards"] == want:
+            name = r["program"].rsplit(".", 1)[1]
+            n, pool = per.get(name, (0, [0.0] * CARDS))
+            per[name] = (n + 1, [p + b / 2**20 for p, b in
+                                 zip(pool, r["card_pool_bytes"])])
+    check(set(per) >= {"_jit_spatial_detect_and_compute", "_dp_step",
+                       "_run_sharded_pgo", "_run_sharded_ba",
+                       "_run_landmark_sharded_ba"},
+          f"[cards programs] programs over the four cards: {sorted(per)}")
+    total = [sum(v[1][i] for v in per.values()) for i in range(CARDS)]
+    print(f"[cards programs] {len(stats)} keys, none eager; over "
+          f"{', '.join(want)}: " + "; ".join(
+              f"{name} {n} keys, pool + "
+              f"{', '.join(f'{x:.1f}' for x in pool)} MiB"
+              for name, (n, pool) in sorted(per.items()))
+          + f"; in all + {', '.join(f'{x:.1f}' for x in total)} MiB per "
+          f"card; reserved per card "
+          f"{', '.join(f'{torch.cuda.memory_reserved(c) / 2**20:.1f}' for c in cards)}"
+          f" MiB; cards: {card}")
+    return per
+
+
 def phase_cards_memory(torch, cards, card):
     """Peak device memory per card of one image (float, max_pts=10000, the
-    kernel path, eager so that no graph pool counts): unsharded on card 0
-    against row-sharded over the four cards, at 1920x2560 and at the
-    largest size up to 3840x5120 that ``spatial_supported`` takes over
-    four shards (2x2 tiles of the 1920x2560 texture: the working set
-    follows the shape, not the content).  Per card the peak of
-    ``max_memory_allocated`` above what was allocated before the call."""
+    kernel path): unsharded on card 0 (eager) against row-sharded over the
+    four cards, eager and captured, at 1920x2560 and at the largest size
+    up to 3840x5120 that ``spatial_supported`` takes over four shards (2x2
+    tiles of the 1920x2560 texture: the working set follows the shape, not
+    the content).  Eager: per card the peak of ``max_memory_allocated``
+    above what was allocated before the call.  Captured (every graph
+    dropped first, so that the key's capture alone fills the pools): per
+    card the MiB the key's capture added to the card's pool, and that
+    plus the peak a replay allocates above the resident set (its inputs
+    and cloned outputs)."""
     from akaze_tpu_torch import Akaze, AkazeConfig, programs
     from akaze_tpu_torch.parallel import make_mesh, spatial_supported
     cfg = AkazeConfig(max_pts=MAX_PTS)
@@ -3620,13 +3819,35 @@ def phase_cards_memory(torch, cards, card):
             four.detect_and_compute(img)
             m1 = peaks(lambda: single.detect_and_compute(img))
             m4 = peaks(lambda: four.detect_and_compute(img))
-        out[f"{h}x{w}"] = dict(unsharded_mib=m1[0], sharded_mib=m4)
+        programs.clear()
+        with no_plain_versions():
+            four.detect_and_compute(img)
+            pool = [b / 2**20 for b in cards_pool(torch, cards)]
+            replay = peaks(lambda: four.detect_and_compute(img))
+        captured = [p + r for p, r in zip(pool, replay)]
+        out[f"{h}x{w}"] = dict(unsharded_mib=m1[0], sharded_mib=m4,
+                               captured_pool_mib=pool,
+                               captured_replay_mib=replay,
+                               captured_mib=captured)
         print(f"[cards memory] {h}x{w}: peak above the resident set, "
-              f"unsharded on {cards[0]} {m1[0]:.1f} MiB; row-sharded over "
-              f"{CARDS} cards {', '.join(f'{x:.1f}' for x in m4)} MiB "
-              f"(cards 0-3; card 0 also holds the gathered features); "
-              f"cards: {card}")
+              f"unsharded on {cards[0]} {m1[0]:.1f} MiB (eager); row-sharded "
+              f"over {CARDS} cards, eager {', '.join(f'{x:.1f}' for x in m4)}"
+              f" MiB (cards 0-3; card 0 also holds the gathered features); "
+              f"captured: pool {', '.join(f'{x:.1f}' for x in pool)} + a "
+              f"replay's {', '.join(f'{x:.1f}' for x in replay)} = "
+              f"{', '.join(f'{x:.1f}' for x in captured)} MiB; cards: {card}")
     return out
+
+
+def cards_pool(torch, cards) -> list:
+    """Bytes the captured keys over ``cards`` added to each card's
+    pool."""
+    from akaze_tpu_torch import programs
+    want = [str(c) for c in cards]
+    rows = [r for r in programs.stats() if r["cards"] == want]
+    check(len(rows) == 1 and not rows[0]["eager"],
+          f"[cards memory] keys over {want}: {rows}")
+    return rows[0]["card_pool_bytes"]
 
 
 # the four NCCL processes: each runs ``nccl_worker`` on its own card
@@ -3942,8 +4163,9 @@ def cards_rows(sp, match, dp, k1_rep, k1_b1_rep, k2_rep, k4_rep):
 
 def main_four(torch, args) -> int:
     """``--cards 4``: the multi-device tier on four cards, in two forms:
-    one process over cuda:0..3 (every mesh path held bit for bit against
-    the same mesh with its four shards on cuda:0) and four processes of
+    one process over cuda:0..3 (every mesh path, eager and as one graph
+    over the four cards per key, held bit for bit against the same mesh
+    with its four shards on cuda:0) and four processes of
     one card each on NCCL (every path equal to the one-process mesh, its
     keys captured); the memory a mesh saves per card.  Fails, and never
     skips, with fewer than four cards."""
@@ -3982,6 +4204,7 @@ def main_four(torch, args) -> int:
     phase_cards_slam(torch, cards, card, frames)
     phase_cards_cli(torch, cards, card, (a8, b8))
     phase_cards_dryrun(torch, cards)
+    phase_cards_programs(torch, cards, card)
     memory = phase_cards_memory(torch, cards, card)
     print(f"[cards] one process over {CARDS} cards: every path passed in "
           f"{time.perf_counter() - t0:.1f} s; no kernel's plain version ran "

@@ -2112,6 +2112,165 @@ def test_four_cards_dp_and_solvers_equal_one_card(cards4):
     _same_leaves(runs[1], runs[0])
 
 
+FOUR_CARD_PATHS = ("spatial float", "spatial fixed", "dp", "pgo",
+                   "ba observations", "ba landmarks")
+
+
+def _four_card_calls(devices):
+    """{path: call}: the five mesh programs' public entry points over a
+    four-shard mesh on ``devices``, every input first put on the mesh's
+    home card (a host copy inside a call would synchronise)."""
+    import torch_mp_worker as worker
+    from akaze_tpu_torch.parallel import (dp_pipeline_step, gather_points,
+                                          landmark_sharded_bundle_adjust,
+                                          make_host_chip_mesh, make_mesh,
+                                          pad_observations,
+                                          partition_landmarks,
+                                          sharded_bundle_adjust,
+                                          sharded_optimize_pose_graph)
+    mesh = make_mesh(4, devices=devices)
+    hc = make_host_chip_mesh(1, 4, devices=devices)
+    home = mesh.home
+    cfg = AkazeConfig(max_pts=4000)
+    sp = Akaze(cfg, mesh=mesh)
+    spx = Akaze(cfg, fixed=True, mesh=mesh)
+    img = torch.as_tensor(pair(480, 640)[0], device=home)
+    raw = torch.as_tensor(raw_pair(480, 640)[0], device=home)
+    a, b = (torch.as_tensor(x, device=home) for x in pair())
+    imgs_a, imgs_b = torch.stack([a, a, b, b]), torch.stack([b, b, a, a])
+    plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
+    R0, t0, graph = worker.pose_graph()
+    R0, t0 = R0.to(home), t0.to(home)
+    graph = type(graph)(*(f.to(home) for f in graph))
+    R, t, X0, prob = worker.make_problem()
+    part = partition_landmarks(prob, X0.shape[0], 4)
+    Xg = gather_points(part, X0).to(home)
+    part = part._replace(prob=type(prob)(*(f.to(home) for f in part.prob)))
+    R, t, X0 = R.to(home), t.to(home), X0.to(home)
+    gprob = pad_observations(type(prob)(*(f.to(home) for f in prob)), 4)
+    return {
+        "spatial float": lambda: sp.detect_and_compute(img),
+        "spatial fixed": lambda: spx.detect_and_compute(raw),
+        "dp": lambda: dp_pipeline_step(imgs_a, imgs_b, plan, mesh),
+        "pgo": lambda: sharded_optimize_pose_graph(
+            R0, t0, graph, mesh, iters=4, robust="cauchy", robust_delta=0.5),
+        "ba observations": lambda: sharded_bundle_adjust(
+            R, t, X0, gprob, mesh, iters=4),
+        "ba landmarks": lambda: landmark_sharded_bundle_adjust(
+            R, t, Xg, part, hc, iters=4, axis=("chip", "host"))}
+
+
+def _sync_cards(cards):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", FOUR_CARD_PATHS)
+def test_four_card_program_replays_equal_eager_and_one_card(cards4, path):
+    """Each mesh program over cuda:0..3 in one process is one graph over
+    the four cards: ``stats()`` lists its key captured with the four
+    cards (home first) and a pool per card; its capture and replays equal
+    the same call under ``programs.eager()`` on the four cards and the
+    one-card four-shard mesh bit for bit; a replay makes no host sync; a
+    repeat adds no key; a call's outputs are unchanged by the next."""
+    from torch.utils import _pytree as pytree
+    from akaze_tpu_torch import programs
+    programs.clear()
+    four = _four_card_calls(cards4)[path]
+    one = _four_card_calls([cards4[0]] * 4)[path]
+    with programs.eager():
+        want = four()
+    ref = one()
+    first = four()
+    _sync_cards(cards4)
+    rows = [r for r in programs.stats()
+            if r["cards"] == [str(c) for c in cards4]]
+    assert rows and not any(r["eager"] for r in rows), rows
+    assert all(len(r["card_pool_bytes"]) == 4 for r in rows)
+    captures = sum(p.captures for p in programs.programs())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = four()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keep = [x.clone() for x in pytree.tree_leaves(second)]
+    third = four()
+    _sync_cards(cards4)
+    assert sum(p.captures for p in programs.programs()) == captures
+    assert all(r["replays"] >= 2 for r in programs.stats()
+               if r["cards"] == [str(c) for c in cards4])
+    for got in (first, second, third, ref):
+        _same_leaves(got, want)
+    _same_leaves(keep, pytree.tree_leaves(second))
+
+
+@pytest.mark.cuda
+def test_four_card_replays_run_in_card_order(cards4):
+    """The dp step over cuda:0..3 (its outputs per card), called on two
+    inputs in turns: an op on each card's current stream, issued straight
+    after a replay, reads that replay's values, and a call's outputs on
+    cuda:1..3 are unchanged by the next call."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.parallel import dp_pipeline_step, make_mesh
+    mesh = make_mesh(4, devices=cards4)
+    a, b = (torch.as_tensor(x, device=cards4[0]) for x in pair())
+    plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
+    inputs = [(torch.stack([a, b, a, b]), torch.stack([b, a, b, a])),
+              (torch.stack([b, b, a, a]), torch.stack([a, a, b, b]))]
+    with programs.eager():
+        wants = [dp_pipeline_step(x, y, plan, mesh) for x, y in inputs]
+    dp_pipeline_step(*inputs[0], plan, mesh)          # the capture
+    for _ in range(3):
+        outs, reads = [], []
+        for x, y in inputs:
+            out = dp_pipeline_step(x, y, plan, mesh)
+            reads.append([fa.x * 1 + fa.count[:, None] for fa in out[0]])
+            outs.append(out)
+        _sync_cards(cards4)
+        for out, read, want in zip(outs, reads, wants):
+            _same_leaves(out, want)
+            for k, fa in enumerate(want[0]):
+                assert read[k].device == cards4[k]
+                assert torch.equal(read[k], fa.x * 1 + fa.count[:, None]), k
+
+
+@pytest.mark.cuda
+def test_four_card_capture_with_a_host_read_raises(cards4):
+    """A function that reads a value to the host under a capture over four
+    cards raises ``ProgramError`` naming its key, captures nothing and
+    leaves no key; the cards capture another key afterwards."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=cards4)
+
+    @programs.jit(static_argnames=("mesh",))
+    def reads(xs, mesh):
+        total = sum(float(x.sum()) for x in xs)
+        return [x * total for x in xs]
+
+    @programs.jit(static_argnames=("mesh",))
+    def folds(xs, mesh):
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x.to(acc.device)
+        return [x * 2 + acc.to(x.device) for x in xs]
+
+    xs = [torch.full((8,), float(i + 1), device=c)
+          for i, c in enumerate(cards4)]
+    assert reads.route(xs, mesh) == "capture"
+    with pytest.raises(programs.ProgramError, match="capture of"):
+        reads(xs, mesh)
+    assert not reads.entries and reads.captures == 0
+    for _ in range(2):
+        got = folds(xs, mesh)
+        _sync_cards(cards4)
+        for i, (g, c) in enumerate(zip(got, cards4)):
+            assert g.device == c
+            assert torch.equal(g.cpu(), torch.full((8,), 2.0 * (i + 1) + 10))
+    assert folds.captures == 1 and folds.replays == 1
+
+
 @pytest.mark.cuda
 def test_four_nccl_processes_capture_equals_eager(cards4, tmp_path):
     """Four processes, one card each (``local_device_ids=[rank]``), on

@@ -405,10 +405,11 @@ def programs_mesh(devices, axis_names=("data",), process_axis=None):
 
 def test_mesh_capture_rule(monkeypatch):
     """The rule that decides, from a key alone, how a mesh program runs:
-    shards on one card are captured; shards on several cards, or a
-    collective across processes, run eagerly; CPU shards take the CPU
-    path.  A program without collectives (the dp step) is captured on a
-    process mesh whose local shards share a card."""
+    shards on one card, or on several cards of a mesh of this process
+    alone, are captured; a collective across processes on gloo, or tensors
+    off the mesh's cards, run eagerly; CPU shards take the CPU path.  A
+    program without collectives (the dp step) is captured on a process
+    mesh whose local shards share a card."""
     cuda0 = torch.device("cuda", 0)
     route = programs.mesh_route
     one_card = make_mesh(4, devices=["cuda:0"] * 4)
@@ -416,8 +417,8 @@ def test_mesh_capture_rule(monkeypatch):
     assert route(one_card, [], ("data",)) == "capture"
     assert route(one_card, [cuda0], None) == "capture"
     two_cards = make_mesh(2, devices=["cuda:0", "cuda:1"])
-    assert route(two_cards, [cuda0], "data") == "eager"
-    assert route(two_cards, [cuda0], None) == "eager"
+    assert route(two_cards, [cuda0], "data") == "capture"
+    assert route(two_cards, [cuda0], None) == "capture"
     assert route(one_card, [torch.device("cuda", 1)], "data") == "eager"
     assert route(one_card, [torch.device("cpu")], "data") == "eager"
     cpu = make_mesh(8, devices=["cpu"] * 8)
@@ -446,8 +447,9 @@ def test_mesh_capture_rule(monkeypatch):
 def test_mesh_route_captures_collectives_on_nccl(monkeypatch):
     """A key whose local shards share one card and whose collectives cross
     processes on NCCL is captured (each rank's graph holds the NCCL
-    calls); on gloo it runs eagerly, as does a process over several
-    cards, whatever the backend."""
+    calls); on gloo it runs eagerly, as does a process of a process mesh
+    over several cards, whatever the backend.  A mesh over four cards of
+    one process is captured (one graph over the four)."""
     cuda0 = torch.device("cuda", 0)
     route = programs.mesh_route
     sp = tpipe._jit_spatial_detect_and_compute
@@ -468,10 +470,198 @@ def test_mesh_route_captures_collectives_on_nccl(monkeypatch):
     assert route(gloo, [cuda0], "data") == "eager"
     assert route(gloo, [cuda0], None) == "capture"
     assert not sp.crosses_on_nccl((("mesh", gloo),))
-    four = make_mesh(4, devices=[f"cuda:{i}" for i in range(4)])
-    assert route(four, [cuda0], "data") == "eager"
-    assert route(four, [], None) == "eager"
+    # one process's mesh over four cards (make_mesh would span the two
+    # processes the monkeypatched group answers for)
+    four = programs_mesh([f"cuda:{i}" for i in range(4)])
+    assert four.process_count == 1
+    assert route(four, [cuda0], "data") == "capture"
+    assert route(four, [], None) == "capture"
     assert not sp.crosses_on_nccl((("mesh", four),))
+
+
+CARDS4 = [torch.device("cuda", i) for i in range(4)]
+
+
+def fake(shape, device, dtype=torch.float32):
+    """A tensor of ``shape`` that reports ``device`` (a CUDA card too, on
+    a machine without one): what a key and a route read of a tensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+
+def mesh_program_calls(mesh, hc):
+    """{name: (program, args, kwargs)}: each of the five mesh programs
+    called as its public entry point calls it, the traced tensors on
+    ``mesh``'s cards (per shard on the shard's card, the rest on its
+    home); the landmark-sharded BA over ``hc`` (axes ("chip", "host"))."""
+    plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
+    home, devs = mesh.home, mesh.local_devices
+    hdevs = hc.local_devices
+
+    def pg(d):
+        return tpg.PoseGraph(fake((8,), d, torch.int32),
+                             fake((8,), d, torch.int32), fake((8, 3, 3), d),
+                             fake((8, 3), d), fake((8,), d))
+
+    def prob(d):
+        return tba.BAProblem(fake((16,), d, torch.int32),
+                             fake((16,), d, torch.int32), fake((16, 2), d),
+                             fake((16,), d))
+
+    R, t = fake((5, 3, 3), home), fake((5, 3), home)
+    mask = fake((5,), home, torch.bool)
+    lm = dict(iters=2, cg_iters=3, lam0=1e-3)
+    return {
+        "spatial": (tpipe._jit_spatial_detect_and_compute,
+                    (fake((64, 80), home), plan, mesh, False, True), {}),
+        "dp": (tdp._dp_step, ([fake((2, 64, 80), d) for d in devs],
+                              [fake((2, 64, 80), d) for d in devs]),
+               dict(plan=plan, mesh=mesh, fixed=False)),
+        "pgo": (tspgo._run_sharded_pgo,
+                (fake((16, 3, 3), home), fake((16, 3), home),
+                 [pg(d) for d in devs], fake((16,), home, torch.bool)),
+                dict(mesh=mesh, iters=2, cg_iters=3, damping=1e-6,
+                     axis=("data",), robust="cauchy", robust_delta=1.0)),
+        "ba observations": (tsba._run_sharded_ba,
+                            (R, t, fake((12, 3), home),
+                             [prob(d) for d in devs], mask),
+                            dict(mesh=mesh, axis=("data",), **lm)),
+        "ba landmarks": (tsba._run_landmark_sharded_ba,
+                         (fake((5, 3, 3), hc.home), fake((5, 3), hc.home),
+                          [fake((3, 3), d) for d in hdevs],
+                          [prob(d) for d in hdevs],
+                          fake((5,), hc.home, torch.bool)),
+                         dict(mesh=hc, axis=("chip", "host"), **lm)),
+    }
+
+
+def test_four_card_mesh_captures_every_mesh_program():
+    """Over ``make_mesh(4, devices=cuda:0..3)`` in one process each of the
+    five mesh programs is captured, the dp step (no collective) included,
+    and its key's cards are the four, the mesh's home first; the same
+    calls with one traced tensor on the CPU, or on a card outside the
+    mesh, run eagerly."""
+    from akaze_tpu_torch.parallel import make_host_chip_mesh
+    four = make_mesh(4, devices=CARDS4)
+    hc = make_host_chip_mesh(1, 4, devices=CARDS4)
+    calls = mesh_program_calls(four, hc)
+    assert sorted(calls) == ["ba landmarks", "ba observations", "dp", "pgo",
+                             "spatial"]
+    for name, (prog, args, kw) in calls.items():
+        assert prog.route(*args, **kw) == "capture", name
+        key, leaves, statics, _ = prog.key(*args, **kw)
+        assert prog._route(statics, leaves)[2] == CARDS4, name
+        assert programs._cards_of_key(key) == CARDS4, name
+        assert not prog.crosses_on_nccl(statics), name
+    sp, args, _ = calls["spatial"]
+    img = args[0]
+    assert sp.route(torch.zeros(64, 80), *args[1:]) == "eager"
+    assert sp.route(fake(img.shape, "cuda:4"), *args[1:]) == "eager"
+    assert sp.route(fake(img.shape, "cuda:3"), *args[1:]) == "capture"
+    # a mesh over two of the four cards: the key's two cards
+    two = make_mesh(2, devices=CARDS4[2:])
+    key = sp.key(fake(img.shape, "cuda:2"), args[1], two, False, True)[0]
+    assert sp.route(fake(img.shape, "cuda:2"), args[1], two, False,
+                    True) == "capture"
+    assert programs._cards_of_key(key) == CARDS4[2:]
+
+
+@pytest.mark.parametrize("backend", ["cpu:gloo,cuda:gloo",
+                                     "cpu:gloo,cuda:nccl"],
+                         ids=["gloo", "nccl"])
+def test_process_mesh_over_two_cards_stays_eager(monkeypatch, backend):
+    """A process whose share of a process mesh lies on two of its cards
+    runs its mesh programs eagerly, on gloo and on NCCL (an NCCL rank
+    drives one card): the spatial program (collectives over the process
+    axis), with or without a traced tensor; one card of the same
+    process mesh is captured on NCCL only."""
+    cuda0 = torch.device("cuda", 0)
+    route = programs.mesh_route
+    cards = _process_mesh(monkeypatch, backend=backend,
+                          devices=["cuda:0", "cuda:1"])
+    assert cards.process_count == 2 and len(cards.local_devices) == 2
+    assert route(cards, [cuda0], "data") == "eager"
+    assert route(cards, [], ("data",)) == "eager"
+    assert route(cards, [cuda0], None) == "eager"
+    plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
+    sp = tpipe._jit_spatial_detect_and_compute
+    assert sp.route(fake((64, 80), "cuda:0"), plan, cards, False,
+                    True) == "eager"
+    one = _process_mesh(monkeypatch, n=1, backend=backend)
+    assert sp.route(fake((64, 80), "cuda:0"), plan, one, False, True) == (
+        "capture" if backend.endswith("nccl") else "eager")
+
+
+def test_mesh_mixing_the_cpu_and_a_card_runs_eagerly():
+    """A mesh whose shards lie on the CPU and on a card runs eagerly,
+    whatever its traced tensors and collectives; so does a card mesh
+    given a CPU tensor, and a CPU mesh given a card's."""
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    route = programs.mesh_route
+    mixed = programs_mesh(["cpu", "cuda:0"])
+    for devices in ([], [cpu], [cuda0], [cpu, cuda0]):
+        for axes in ("data", None):
+            assert route(mixed, devices, axes) == "eager", (devices, axes)
+    assert route(make_mesh(2, devices=CARDS4[:2]), [cpu], None) == "eager"
+    assert route(make_mesh(2, devices=["cpu"] * 2), [cuda0],
+                 None) == "eager"
+    assert programs.key_cards(mixed) == [cpu, cuda0]
+
+
+def test_key_cards_put_the_home_first_then_mesh_order():
+    """A key's cards: the mesh's local devices in mesh order, each once
+    (the home first), then the traced tensors' cards outside the mesh;
+    ``"cuda"`` without an index is the current card."""
+    d = [torch.device(x) for x in ("cuda:2", "cuda:0", "cuda:2", "cuda:1")]
+    mesh = make_mesh(4, devices=d)
+    assert mesh.home == d[0]
+    want = [d[0], d[1], d[3]]
+    assert programs.key_cards(mesh) == want
+    assert programs.key_cards(mesh, [d[1], d[0]]) == want
+    assert programs.key_cards(mesh, [torch.device("cuda", 3)]) == \
+        want + [torch.device("cuda", 3)]
+    assert programs.mesh_route(mesh, [torch.device("cuda", 3)],
+                               "data") == "eager"
+    assert programs.mesh_route(mesh, [d[3]], "data") == "capture"
+    hier = programs_mesh(np.array(["cuda:1", "cuda:0", "cuda:1",
+                                   "cuda:3"]).reshape(2, 2),
+                         axis_names=("chip", "host"))
+    assert programs.key_cards(hier) == [torch.device("cuda", i)
+                                        for i in (1, 0, 3)]
+    bare = programs.key_cards(make_mesh(2, devices=["cuda", "cuda"]))
+    assert len(bare) == 1 and bare[0].type == "cuda" \
+        and bare[0].index is not None
+
+
+def test_stats_row_of_a_four_card_key(monkeypatch):
+    """``stats()`` lists a captured key over four cards with
+    ``eager=False``, its ``cards`` (home first), the bytes its capture
+    added to each card's pool and their sum; ``clear()`` drops the key
+    and every card's pool."""
+    from akaze_tpu_torch.parallel import make_host_chip_mesh
+    four = make_mesh(4, devices=CARDS4)
+    prog, args, kw = mesh_program_calls(
+        four, make_host_chip_mesh(1, 4, devices=CARDS4))["pgo"]
+    key = prog.key(*args, **kw)[0]
+    per = [3 << 20, 1 << 20, 0, 2 << 20]
+    entry = programs._Entry(object(), CARDS4, [], [], [], None, [], per,
+                            0.5, 0.25)
+    entry.replays = 2
+    monkeypatch.setitem(prog.entries, key, entry)
+    monkeypatch.setattr(programs, "_POOLS",
+                        {c: object() for c in CARDS4})
+    rows = [r for r in programs.stats() if r["program"] == prog.name]
+    assert len(rows) == 1
+    row = rows[0]
+    assert row["eager"] is False and row["nccl"] is False
+    assert row["cards"] == [str(c) for c in CARDS4]
+    assert row["card_pool_bytes"] == per and row["pool_bytes"] == sum(per)
+    assert row["calls"] == 3 and row["replays"] == 2
+    assert row["warmup_s"] == 0.5 and row["capture_s"] == 0.25
+    assert "Mesh({'data': 4}" in row["key"]
+    programs.clear()
+    assert not prog.entries and not programs._POOLS
 
 
 def test_calls_not_captured_see_the_graphs_inputs():

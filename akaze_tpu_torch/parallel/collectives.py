@@ -15,15 +15,21 @@ only in those axes:
 * gathers concatenate in block order (the first-listed axis major, as
   JAX's tiled ``all_gather`` over an axis tuple);
 * where an axis spans processes, the same helpers call
-  ``torch.distributed`` on the mesh's process group (``gloo`` for CPU
-  tensors, ``nccl`` for CUDA tensors): a sum or maximum over that axis
-  all-gathers every shard's operand (``all_gather_into_tensor``, in
-  process order) and every rank folds them in index order, never with
-  ``all_reduce``, whose order is the backend's; so every rank holds the
-  same bits, equal to the one-process mesh's.  Gathers use
-  ``all_gather_into_tensor`` too, and the halo exchange
-  ``batch_isend_irecv`` (on NCCL its waits are stream waits, so the ops
-  run inside a captured CUDA graph).
+  ``torch.distributed`` (``gloo`` for CPU tensors, ``nccl`` for CUDA
+  tensors): a sum or maximum over that axis all-gathers every shard's
+  operand (``all_gather_into_tensor``, in process order) and every rank
+  folds them in index order, never with ``all_reduce``, whose order is
+  the backend's; so every rank holds the same bits, equal to the
+  one-process mesh's.  Gathers use ``all_gather_into_tensor`` too, and
+  the halo exchange ``batch_isend_irecv`` (on NCCL its waits are stream
+  waits, so the ops run inside a captured CUDA graph).  Each such call
+  carries the tensors of one card and runs on the group made for that
+  card's role (``distributed.role_groups``): a gather across processes
+  on the group of its operand's card slot, the halo rows of a seam
+  between two processes on that seam's two-rank group, one batch per
+  seam group.  A process whose shards lie on several cards thus never
+  puts two of its cards into one NCCL communicator; the fold and block
+  orders, and so the bits, are those of one group.
 
 ``traced()`` records every collective's name and per-shard operand size,
 so that tests can bound what crosses the mesh.
@@ -85,11 +91,15 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> list:
 
 
 def _gather_processes(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """[process_count, *x.shape]: ``x`` (a stack of shards, [n, ...]) of
-    every process of the mesh's group, in process order."""
+    """[process_count, *x.shape]: ``x`` (a stack of shards, [n, ...], on
+    one card) of every process of the mesh, in process order, gathered
+    on the group of that card's slot."""
+    from .distributed import card_slot, role_groups
+    role = ("slot", card_slot(mesh, x.device))
     out = x.new_empty((mesh.process_count * x.shape[0],)
                       + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    dist.all_gather_into_tensor(out, x.contiguous(),
+                                group=role_groups(mesh, [role])[role])
     return out.view((mesh.process_count,) + tuple(x.shape))
 
 
@@ -241,34 +251,50 @@ def _exchange_edges(where, mesh: Mesh, axis: str, r: int, dim: int):
     """Rows of the neighbouring processes' edge shards: this process's
     first shard along ``axis`` sends its first ``r`` rows down the ring
     (to process p - 1) and receives p - 1's last rows; its last shard
-    sends its last rows to p + 1 and receives p + 1's first rows."""
+    sends its last rows to p + 1 and receives p + 1's first rows.  The
+    rows of seam (q, q + 1) for the shards of one key cross on the group
+    of role ("seam", q, i, k): q's last shard lies on its card slot i and
+    q + 1's first on its slot k (the same slots on every process).  One
+    batch per seam group, in role order, the keys in order within it."""
+    from .distributed import card_slot, role_groups
     p, count = mesh.process_index, mesh.process_count
     local = mesh.local_shape[axis]
     lo, hi = p * local, p * local + local - 1
+    keys = sorted({k for k, _ in where})
+    slots = {key: (card_slot(mesh, where[(key, hi)].device),
+                   card_slot(mesh, where[(key, lo)].device))
+             for key in keys}
+    # every rank makes every seam's group, members or not
+    groups = role_groups(mesh, sorted({("seam", q) + slots[key]
+                                       for q in range(count - 1)
+                                       for key in keys}))
 
     def peer(q):
         return (q if mesh.group is None
                 else dist.get_global_rank(mesh.group, q))
 
-    ops, got = [], {}
-    for key in sorted({k for k, _ in where}):
+    ops, got = {}, {}
+    for key in keys:
         first, last = where[(key, lo)], where[(key, hi)]
         if p > 0:
+            role = ("seam", p - 1) + slots[key]
             buf = torch.empty_like(first.narrow(dim, 0, r)).contiguous()
-            ops += [dist.P2POp(dist.isend,
-                               first.narrow(dim, 0, r).contiguous(),
-                               peer(p - 1), mesh.group),
-                    dist.P2POp(dist.irecv, buf, peer(p - 1), mesh.group)]
+            ops.setdefault(role, []).extend([
+                dist.P2POp(dist.isend, first.narrow(dim, 0, r).contiguous(),
+                           peer(p - 1), groups[role]),
+                dist.P2POp(dist.irecv, buf, peer(p - 1), groups[role])])
             got[(key, lo - 1)] = buf
         if p < count - 1:
+            role = ("seam", p) + slots[key]
             buf = torch.empty_like(last.narrow(dim, 0, r)).contiguous()
-            ops += [dist.P2POp(dist.isend,
-                               last.narrow(dim, last.shape[dim] - r,
-                                           r).contiguous(),
-                               peer(p + 1), mesh.group),
-                    dist.P2POp(dist.irecv, buf, peer(p + 1), mesh.group)]
+            ops.setdefault(role, []).extend([
+                dist.P2POp(dist.isend,
+                           last.narrow(dim, last.shape[dim] - r,
+                                       r).contiguous(),
+                           peer(p + 1), groups[role]),
+                dist.P2POp(dist.irecv, buf, peer(p + 1), groups[role])])
             got[(key, hi + 1)] = buf
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
+    for role in sorted(ops):
+        for req in dist.batch_isend_irecv(ops[role]):
             req.wait()
     return got

@@ -10,9 +10,9 @@ together for callers and tests.
 
 The step is one compiled program (``_dp_step``, static ``plan``, ``mesh``
 and ``fixed``, the values JAX's ``jax.jit(local_step)`` closes over): one
-CUDA graph per key on a mesh of one card or of several cards of this
-process (``programs.mesh_route``; it makes no collective, so a mesh
-across processes is captured too when its local shards share a card).  JAX builds a new ``jax.jit(local_step)`` on every
+CUDA graph per key and process, over the process's cards of the mesh
+(``programs.mesh_route``; it makes no collective, so a mesh across
+processes is captured on any backend).  JAX builds a new ``jax.jit(local_step)`` on every
 ``make_dp_step`` call and so retraces every step; the port's keyed program
 replays a repeated step instead.
 

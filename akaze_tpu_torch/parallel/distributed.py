@@ -20,6 +20,23 @@ Several processes on one host each take their own cards with
     initialize_distributed("tcp://localhost:29500", 4, rank,
                            local_device_ids=[rank])
 
+A process may own several cards, as JAX's one process per host drives
+that host's chips::
+
+    initialize_distributed("tcp://localhost:29500", 2, rank,
+                           local_device_ids=[2 * rank, 2 * rank + 1])
+
+NCCL takes one card per rank in a communicator, so the steps that cross
+processes do not run on the mesh's own group but on groups made under it
+for one role each (``role_groups``): per card slot j of the mesh (its
+j-th distinct local device), a group whose every rank takes part on its
+j-th card, which carries the sums and gathers over the process axis of
+an operand on that card ("collectives over ``host`` cross DCN once per
+chip rank"); and per seam between processes p and p + 1 of the process
+axis, a two-rank group that p joins on the card of its last shard along
+that axis and p + 1 on the card of its first, which carries the halo
+rows.  Every group carries one card per rank, on NCCL and on gloo alike.
+
 Single-process use needs no call: a (1, n) host/chip mesh or a purely
 local mesh runs the same programs.
 """
@@ -34,6 +51,7 @@ import numpy as np
 import torch
 
 from . import collectives as col
+from ..programs import _card, key_cards
 from .mesh import Mesh, set_local_devices, visible_devices
 
 HOST_AXIS = "host"
@@ -61,10 +79,12 @@ def initialize_distributed(init_method: Optional[str] = None,
     ``make_host_chip_mesh`` then default to them, and the first becomes
     the current card.  None keeps every visible card and the current one.
     On a group whose CUDA backend is NCCL, which takes one rank per card,
-    ranks whose cards (their first owned card, or the current one) are one
-    physical card raise ``ValueError`` here, before any collective on the
-    card: launch one process per card with ``local_device_ids=[rank]``
-    (or one ``CUDA_VISIBLE_DEVICES`` card each)."""
+    two ranks that own one physical card (any of their
+    ``local_device_ids``, or without them the current card) raise
+    ``ValueError`` here on every rank, before any NCCL call: give each
+    process cards of its own (``local_device_ids=[rank]``, or
+    ``[2 * rank, 2 * rank + 1]`` for two each, or one
+    ``CUDA_VISIBLE_DEVICES`` set each)."""
     import torch.distributed as dist
 
     if local_device_ids is not None:
@@ -88,7 +108,9 @@ def initialize_distributed(init_method: Optional[str] = None,
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank)
     if collective_backend(None) == "nccl":
-        _refuse_shared_cards()
+        _refuse_shared_cards(
+            visible_devices() if local_device_ids is not None
+            else [torch.device("cuda", torch.cuda.current_device())])
     return True
 
 
@@ -109,25 +131,65 @@ def _card_id(device: torch.device) -> str:
             f"{torch.cuda.get_device_properties(device).uuid}")
 
 
-def _refuse_shared_cards() -> None:
-    """Raise on every rank where two ranks of the NCCL group drive one
-    card (their first owned card, or the current one)."""
+def _refuse_shared_cards(owned) -> None:
+    """Raise on every rank where two ranks of the NCCL group own one card
+    (``owned``: this rank's cards): every rank gathers every rank's cards
+    and checks them all."""
     import torch.distributed as dist
 
-    mine = _card_id(torch.device("cuda", torch.cuda.current_device()))
+    mine = [_card_id(d) for d in owned]
     ids = [None] * dist.get_world_size()
     # over the CPU's backend: no NCCL call before the check
     cpu = (None if collective_backend(None, "cpu") == "gloo"
            else dist.new_group(backend="gloo"))
     dist.all_gather_object(ids, mine, group=cpu)
     first = {}
-    for r, c in enumerate(ids):
-        if c in first:
-            raise ValueError(
-                f"ranks {first[c]} and {r} both drive card {c}: NCCL takes "
-                f"one rank per card; pass local_device_ids=[rank] (or give "
-                f"each process its own CUDA_VISIBLE_DEVICES card)")
-        first[c] = r
+    for r, cards in enumerate(ids):
+        for c in cards:
+            if first.setdefault(c, r) != r:
+                raise ValueError(
+                    f"ranks {first[c]} and {r} both drive card {c}: NCCL "
+                    f"takes one rank per card; give each process cards of "
+                    f"its own (local_device_ids=[rank], or one "
+                    f"CUDA_VISIBLE_DEVICES set each)")
+
+
+_GROUPS = {}    # (parent group, this process's cards of a mesh) -> roles
+
+
+def card_slot(mesh: Mesh, device) -> int:
+    """The slot of ``device`` (a device of the mesh's local shards): its
+    index among the mesh's distinct local devices in mesh order
+    (``programs.key_cards``)."""
+    return key_cards(mesh).index(_card(torch.device(device)))
+
+
+def role_groups(mesh: Mesh, roles) -> dict:
+    """{role: process group} for ``roles`` under the mesh's process group
+    (``mesh.group``, None: the default group): ``("slot", j)``, every
+    rank of the group, each on its card slot j; ``("seam", p, i, k)``,
+    ranks p and p + 1 of the group, p on its card slot i and p + 1 on its
+    card slot k.  A group is made on its first request, with every rank
+    of the world taking part (``new_group``), then cached per parent group
+    and per this process's cards of the mesh (``programs.key_cards``):
+    every rank asks for the same roles in the same order (its meshes have
+    the same shape and the same cards per slot), so every rank makes or
+    reuses the same groups, and a group always carries the same card of
+    each rank.  A second mesh of the same shape and cards gets the same
+    groups."""
+    import torch.distributed as dist
+
+    parent = mesh.group
+    made = _GROUPS.setdefault((parent, tuple(key_cards(mesh))), {})
+    ranks = (list(range(dist.get_world_size())) if parent is None
+             else dist.get_process_group_ranks(parent))
+    backend = None if parent is None else dist.get_backend_config(parent)
+    for role in roles:
+        if role not in made:
+            members = (ranks if role[0] == "slot"
+                       else [ranks[role[1]], ranks[role[1] + 1]])
+            made[role] = dist.new_group(members, backend=backend)
+    return {role: made[role] for role in roles}
 
 
 def make_host_chip_mesh(num_hosts: Optional[int] = None,

@@ -17,8 +17,9 @@ shards in a fixed order:
 
 Each is one compiled program (``_run_sharded_ba``,
 ``_run_landmark_sharded_ba``; JAX's static arguments, ``lam0`` among
-them): one CUDA graph per key on a mesh whose shards share one card, or
-lie on several cards of this process (``programs.mesh_route``).  The partition (``partition_landmarks``,
+them): one CUDA graph per key and process, over the process's cards of
+the mesh, its sums across processes inside it on NCCL
+(``programs.mesh_route``).  The partition (``partition_landmarks``,
 ``gather_points``) and the sharding of the inputs run on the host before
 the program, as JAX's partition does.
 """

@@ -50,38 +50,39 @@ static ``mesh``); traced arguments may then be per-shard lists of
 tensors or of named tuples.  Such a key is decided once, from the key
 alone and before any capture is tried (``mesh_route``).  It is captured
 when the mesh's local shards and the traced tensors all lie on CUDA
-cards of the mesh and either
+cards of the mesh and every collective of the program that crosses
+processes (the program's ``collective_axes``, of its static values,
+that span a process axis: ``Mesh.spans_processes``) runs on NCCL, the
+group's backend for CUDA tensors; a program without collectives, such
+as the data-parallel step, and a mesh of this process alone pass that
+test whatever the mesh.  Each process then captures one graph per key,
+as JAX's jit makes one program per process over its devices:
 
-* they lie on one card and every collective of the program that crosses
-  processes (the program's ``collective_axes``, of its static values,
-  that span a process axis: ``Mesh.spans_processes``) runs on NCCL, the
-  group's backend for CUDA tensors.  Each rank then captures one graph
-  holding its kernels and the NCCL collectives and point-to-point ops;
-  the eager warm-up before the capture brings up every communicator,
-  and the ranks must call their programs in one order (as they must
-  call collectives); or
-* the mesh lies in this process alone and spans several of its cards.
-  One graph then spans those cards (``key_cards``: the mesh's home
-  first, then its other cards in mesh order), as JAX's jit makes one
-  program over a mesh's devices: the warm-up and the capture run with
+* it spans the key's cards (``key_cards``: the mesh's home first, then
+  its other cards in mesh order): the warm-up and the capture run with
   every card's side stream current, the capture begins on the home
   card's and forks each other card's in by an event, and joins them
   back before it ends; each card allocates into its own pool, and the
   cross-card copies of the collectives are stream-ordered peer copies
-  inside the graph.
+  inside the graph;
+* it holds the NCCL collectives and point-to-point ops of the key's
+  cross-process steps, each on its card's stream, each communicator
+  carrying one card of each rank (``parallel.collectives`` routes a
+  step to the group of its operand's card role); the eager warm-up
+  before the capture makes every such group and brings up every
+  communicator (neither can happen under capture), and the ranks must
+  call their programs in one order (as they must call collectives), so
+  that each communicator sees one sequence of ops on every rank.
 
-A program without collectives, such as the data-parallel step, passes
-the first test whatever the mesh.  A key whose shards all lie on the
-CPU takes the CPU path below.  Every other key runs the function as it
-is, on every call: collectives across processes on gloo (a host-side
-backend that no graph can hold), a process's mesh over several cards
-that also spans processes (an NCCL rank drives one card), and keys that
-mix the CPU and a card or reach a card outside the mesh.  ``stats()``
-lists those keys with ``eager=True`` and their calls, a captured key
-whose collectives cross processes with ``nccl=True``, and every mesh
-key's ``cards``.  A key the rule captures and whose capture fails raises
-``ProgramError`` as any other; nothing is retried eagerly.  A key
-without a mesh whose tensors lie on several devices raises.
+A key whose shards all lie on the CPU takes the CPU path below.  Every
+other key runs the function as it is, on every call: collectives across
+processes on gloo (a host-side backend that no graph can hold), and keys
+that mix the CPU and a card or reach a card outside the mesh.
+``stats()`` lists those keys with ``eager=True`` and their calls, a
+captured key whose collectives cross processes with ``nccl=True``, and
+every mesh key's ``cards``.  A key the rule captures and whose capture
+fails raises ``ProgramError`` as any other; nothing is retried eagerly.
+A key without a mesh whose tensors lie on several devices raises.
 
 A replay of a key over several cards copies the inputs on each card's
 current stream, makes the home card's current stream wait on every
@@ -252,17 +253,14 @@ def mesh_route(mesh, devices, collective_axes) -> str:
     ``collective_axes``: the axes of the program's collectives, None for
     a program without any).  ``"cpu"`` when the shards and tensors all
     lie on the CPU; ``"capture"`` when they all lie on CUDA cards of the
-    mesh and either on one card, with each collective that crosses
-    processes on NCCL, or on several cards of a mesh that lies in this
-    process alone; else ``"eager"`` (see the module's docstring)."""
+    mesh, one or several, and each collective that crosses processes
+    runs on NCCL; else ``"eager"`` (see the module's docstring)."""
     cards = key_cards(mesh, devices)
     if all(d.type == "cpu" for d in cards):
         return "cpu"
     if (any(d.type != "cuda" for d in cards)
             or len(cards) > len(key_cards(mesh))):
         return "eager"
-    if len(cards) > 1:
-        return "capture" if mesh.process_count == 1 else "eager"
     ok = crossing_backend(mesh, collective_axes) in (None, "nccl")
     return "capture" if ok else "eager"
 

@@ -170,11 +170,25 @@ spatial program, ``sharded_match``, ``dp_pipeline_step_multihost``,
 sharded PGO and both BAs, each equal on every rank bit for bit to the
 one-process mesh of the same shape, every key across processes captured
 with its NCCL calls (replays = eager, no host sync, no new key on a
-repeat), eager and captured times in turns with the idle share per rank.
-Its kernels line holds the four-card rows (``*_cards4``: per card per
-pair of the spatial main path; ``*_cards4_dp``: per card per dp step;
-both profiled from replays; ``hamming_kernel_cards4_sharded_match``: per
-card per call, eager as ``sharded_match`` is no program).
+repeat), eager and captured times in turns with the idle share per rank;
+last JAX's (host, chip) runtime shape, two processes of two cards each
+(this script with ``--procs-worker``, ``local_device_ids`` [0, 1] and
+[2, 3], NCCL) over ``make_mesh(4)`` and ``make_host_chip_mesh(2, 2)``: the
+same paths (the dp step with 4 of the 8 pairs per process) and JAX's
+runtime collectives (``hier_psum``, ``psum`` and ``all_gather`` over
+``"host"``, one program), each equal on both ranks bit for bit to the
+one-process mesh of the same shape over cuda:0..3, every key one graph
+over the process's two cards holding both cards' NCCL calls (replays =
+eager, no host sync, no new key on a repeat), the spatial pair's
+launches per card with the counters set to 0 before and read after, K1,
+K2 and K4 against their plain versions on each card's own launches, eager
+and captured in turns with each card's idle share beside the one-process
+and four-rank walls.  Its kernels line holds the four-card rows
+(``*_cards4``: per card per pair of the spatial main path;
+``*_cards4_dp``: per card per dp step; both profiled from replays;
+``hamming_kernel_cards4_sharded_match``: per card per call, eager as
+``sharded_match`` is no program; ``*_procs2x2``: per card per pair of the
+spatial path of the two processes, from replays).
 
 The pair is the stock pair (``left.pgm``/``right.pgm`` under
 ``--stock-dir``) when given, else a seeded
@@ -196,6 +210,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3964,19 +3979,7 @@ def nccl_worker(torch, rank: int, port: int, outdir: str) -> int:
     np.savez(os.path.join(outdir, f"out.{rank}.npz"), **outs)
     with open(os.path.join(outdir, f"info.{rank}.json"), "w") as f:
         json.dump(info, f)
-    # leave once every rank wrote its results, with no collective at
-    # teardown (a barrier or destroy_process_group there can wait forever
-    # on communicators that captured graphs hold)
-    open(os.path.join(outdir, f"done.{rank}"), "w").close()
-    t0 = time.monotonic()
-    while not all(os.path.exists(os.path.join(outdir, f"done.{r}"))
-                  for r in range(CARDS)):
-        check(time.monotonic() - t0 < 120, f"rank {rank}: the other ranks "
-              f"did not finish")
-        time.sleep(0.05)
-    print(f"[nccl rank {rank}] done", flush=True)
-    sys.stdout.flush()
-    os._exit(0)
+    leave_together(outdir, rank, CARDS, "nccl")
 
 
 def phase_nccl(torch, cards, card, a):
@@ -3987,73 +3990,14 @@ def phase_nccl(torch, cards, card, a):
     collective across processes captured with its NCCL calls.  A worker's
     failure fails the run with its exit code and the tail of its
     output."""
-    import socket
     from akaze_tpu_torch.parallel import make_host_chip_mesh
     one = one_card_mesh(cards)
     hc1 = make_host_chip_mesh(CARDS, 1, devices=[cards[0]] * CARDS)
     refs = {name: fn() for name, fn in nccl_paths(torch, a, one, hc1,
                                                   None).items()}
     torch.cuda.synchronize()
-    here = os.path.dirname(os.path.abspath(__file__))
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as outdir:
-        logs = [open(os.path.join(outdir, f"log.{r}"), "w+")
-                for r in range(CARDS)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py"), "--worker",
-             str(r), str(port), outdir], stdout=logs[r],
-            stderr=subprocess.STDOUT) for r in range(CARDS)]
-        try:
-            # a rank that fails leaves the others waiting in a collective:
-            # stop them all at the first failure
-            while (any(p.poll() is None for p in procs)
-                   and not any(p.poll() for p in procs)
-                   and time.perf_counter() - t0 < NCCL_TIMEOUT_S):
-                time.sleep(0.5)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        tails = []
-        for r, (p, f) in enumerate(zip(procs, logs)):
-            f.seek(0)
-            tails.append(f.read()[-4000:])
-            f.close()
-        for r, p in enumerate(procs):
-            if p.returncode != 0:
-                print(f"[nccl] rank {r} exit {p.returncode}; its output "
-                      f"ends:\n{tails[r]}", flush=True)
-        check(all(p.returncode == 0 for p in procs),
-              f"[nccl] worker exit codes {[p.returncode for p in procs]}")
-        wall = time.perf_counter() - t0
-        got = [np.load(os.path.join(outdir, f"out.{r}.npz"))
-               for r in range(CARDS)]
-        info = []
-        for r in range(CARDS):
-            with open(os.path.join(outdir, f"info.{r}.json")) as f:
-                info.append(json.load(f))
-    for name in NCCL_PATHS:
-        want = refs[name]
-        for r, g in enumerate(got):
-            # replicated outputs (features, poses, costs) are one tensor on
-            # the mesh's first device; per-shard outputs a list over the
-            # shards, of which each rank holds its own
-            mine = rank_view(want, r)
-            leaves = [x.cpu().numpy() for x in pytree_leaves(mine)]
-            keys = sorted((k for k in g.files
-                           if k.rsplit(".", 1)[0] == name),
-                          key=lambda k: int(k.rsplit(".", 1)[1]))
-            check(len(keys) == len(leaves), f"[nccl {name}] rank {r}: "
-                  f"{len(keys)} outputs, the one-process mesh "
-                  f"{len(leaves)}")
-            for k, w in zip(keys, leaves):
-                check(g[k].dtype == w.dtype and np.array_equal(g[k], w),
-                      f"[nccl {name}] rank {r} output {k} differs from the "
-                      f"one-process mesh's")
+    wall, got, info = run_ranks("--worker", CARDS, "nccl")
+    hold_ranks(refs, NCCL_PATHS, got, 1, "nccl")
     for r, inf in enumerate(info):
         keys = inf["keys"]
         crossing = [k for k in keys if k["nccl"]]
@@ -4084,15 +4028,405 @@ def phase_nccl(torch, cards, card, a):
     return info
 
 
-def rank_view(out, r):
+def run_ranks(flag: str, world: int, tag: str):
+    """Run this script with ``flag RANK PORT DIR`` as ``world`` processes
+    joined on a free port, stop them all at the first failure (a rank that
+    fails leaves the others waiting in a collective) or at
+    ``NCCL_TIMEOUT_S``, and fail with each failed rank's exit code and the
+    tail of its output.  Returns (seconds, each rank's outputs, each
+    rank's info)."""
+    import socket
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as outdir:
+        logs = [open(os.path.join(outdir, f"log.{r}"), "w+")
+                for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), flag,
+             str(r), str(port), outdir], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < NCCL_TIMEOUT_S):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tails = []
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            tails.append(f.read()[-4000:])
+            f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(f"[{tag}] rank {r} exit {p.returncode}; its output "
+                      f"ends:\n{tails[r]}", flush=True)
+        check(all(p.returncode == 0 for p in procs),
+              f"[{tag}] worker exit codes {[p.returncode for p in procs]}")
+        wall = time.perf_counter() - t0
+        got = [np.load(os.path.join(outdir, f"out.{r}.npz"))
+               for r in range(world)]
+        info = []
+        for r in range(world):
+            with open(os.path.join(outdir, f"info.{r}.json")) as f:
+                info.append(json.load(f))
+    return wall, got, info
+
+
+def hold_ranks(refs, paths, got, per: int, tag: str):
+    """Fail unless every rank's outputs of every path (``got``: each
+    rank's saved leaves, ``path.i``) equal the one-process mesh's
+    (``refs``) bit for bit: replicated outputs whole, per-shard outputs
+    the rank's ``per`` shards."""
+    for name in paths:
+        for r, g in enumerate(got):
+            leaves = [x.cpu().numpy()
+                      for x in pytree_leaves(rank_view(refs[name], r, per))]
+            keys = sorted((k for k in g.files
+                           if k.rsplit(".", 1)[0] == name),
+                          key=lambda k: int(k.rsplit(".", 1)[1]))
+            check(len(keys) == len(leaves), f"[{tag} {name}] rank {r}: "
+                  f"{len(keys)} outputs, the one-process mesh "
+                  f"{len(leaves)}")
+            for k, w in zip(keys, leaves):
+                check(g[k].dtype == w.dtype and np.array_equal(g[k], w),
+                      f"[{tag} {name}] rank {r} output {k} differs from "
+                      f"the one-process mesh's")
+
+
+def rank_view(out, r, per: int = 1):
     """Rank ``r``'s part of a one-process mesh output: per-shard lists
-    (one entry per shard) give shard ``r``; everything else is
-    replicated."""
+    (one entry per shard) give the rank's shard (``per`` 1) or its
+    ``per`` shards; everything else (features, poses, costs: one tensor
+    on the mesh's first device) is replicated."""
     if isinstance(out, list):
-        return out[r]
+        return out[r] if per == 1 else out[r * per:(r + 1) * per]
     if isinstance(out, tuple) and not hasattr(out, "_fields"):
-        return tuple(rank_view(x, r) for x in out)
+        return tuple(rank_view(x, r, per) for x in out)
     return out
+
+
+# two processes of two cards each (JAX's (host, chip) runtime shape): each
+# runs ``procs_worker`` on its own two cards
+
+PROCS = 2               # processes of the (host, chip) phase
+PROC_CARDS = 2          # cards per process
+PROCS_PATHS = NCCL_PATHS + ("collectives",)
+PROCS_PROGRAMS = {"_jit_spatial_detect_and_compute", "_dp_step",
+                  "_run_sharded_pgo", "_run_sharded_ba",
+                  "_run_landmark_sharded_ba", "_runtime_collectives"}
+
+
+def _runtime_collectives(xs, mesh):
+    """JAX's runtime collectives on a (host, chip) mesh
+    (``akaze_tpu/parallel/distributed.py``): ``hier_psum`` over ("chip",
+    "host"), ``psum`` and a tiled ``all_gather`` over ``"host"`` alone."""
+    from akaze_tpu_torch.parallel import collectives as col
+    from akaze_tpu_torch.parallel import hier_psum
+    return (hier_psum(xs, mesh), col.psum(xs, mesh, "host"),
+            col.all_gather(xs, mesh, "host"))
+
+
+@functools.cache
+def runtime_program():
+    """``_runtime_collectives`` as one program (the mesh static, its
+    collectives over ("chip", "host")), so that it is captured."""
+    from akaze_tpu_torch import programs
+    return programs.jit(_runtime_collectives, static_argnames=("mesh",),
+                        collective_axes=lambda statics: ("chip", "host"))
+
+
+def procs_paths(torch, a, dm, hc, rank):
+    """``nccl_paths`` on ``dm`` and ``hc`` (the dp step: this rank's 4 of
+    the 8 pairs), and the runtime collectives (``runtime_program``) on
+    seeded real-valued [384, 33] rows sharded over ("chip", "host") of
+    ``hc``."""
+    from akaze_tpu_torch.parallel import collectives as col
+    calls = nccl_paths(torch, a, dm, hc, rank)
+    rng = np.random.default_rng(SEED + 7)
+    g = torch.as_tensor(rng.standard_normal((4 * 96, 33)).astype(np.float32),
+                        device=hc.home)
+    xs = col.shard(g, hc, ("chip", "host"))
+    calls["collectives"] = lambda: runtime_program()(xs, hc)
+    return calls
+
+
+def procs_turns(torch, cards, fn, reps: int = 3):
+    """``cards_turns`` of ``fn`` over a rank's cards: (walls in turns with
+    each card's busy, compute (no NCCL kernel) and NCCL ms per form and
+    its idle share 1 - compute / wall, as NCCL's kernels spin until the
+    other rank arrives; the captured form's profile)."""
+    r = cards_turns(torch, cards, fn, reps)
+    out = dict(eager_ms=r["eager_ms"], captured_ms=r["captured_ms"])
+    for kind in ("eager", "captured"):
+        wall = float(np.median(r[f"{kind}_ms"]))
+        prof = r[f"{kind}_prof"]
+        for k in ("busy", "compute", "nccl"):
+            out[f"{kind}_{k}_ms"] = [prof.get(c.index, {}).get(k, 0.0)
+                                     for c in cards]
+        out[f"{kind}_idle"] = [1.0 - x / wall
+                               for x in out[f"{kind}_compute_ms"]]
+    return out, r["captured_prof"]
+
+
+def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
+    """One of two processes, on cards 2 * rank and 2 * rank + 1
+    (``local_device_ids``), joined on NCCL, over ``make_mesh(4)`` and
+    ``make_host_chip_mesh(2, 2)``: the spatial pair with the launch
+    counters set to 0 before and read after (K1/K2 launches per card as
+    ``spatial_route`` predicts, eager and captured), K1 and K2 against
+    their plain versions on each card's launches of the eager pair, and K1,
+    K2 and K4 on the eager dp step's and ``sharded_match``'s; then each
+    path of ``procs_paths`` eagerly and as its program (one graph over the
+    two cards per key, holding the NCCL calls of both cards'
+    communicators), its first call and replays equal to the eager call bit
+    for bit, no host sync in a replay, no new key on a repeat
+    (``hold_cards``); every mesh key captured over the two cards, with
+    ``nccl=True`` where its collectives cross the processes; eager and
+    captured in turns with each card's idle share, and each card's kernel
+    times from replays of the pair.  Writes the outputs and a JSON of the
+    numbers to ``outdir``."""
+    from akaze_tpu_torch import Akaze, AkazeConfig, programs, scale_space
+    from akaze_tpu_torch import parallel as P
+    from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.ops import hamming as k4mod
+    from akaze_tpu_torch.parallel import spatial, spatial_launches
+    owned = [PROC_CARDS * rank + j for j in range(PROC_CARDS)]
+    cards = [torch.device("cuda", i) for i in owned]
+    check(P.initialize_distributed(f"tcp://localhost:{port}", PROCS, rank,
+                                   local_device_ids=owned),
+          "initialize_distributed did not join the group")
+    check(torch.cuda.current_device() == owned[0],
+          f"rank {rank}: card {torch.cuda.current_device()} is current")
+    dm, hc = P.make_mesh(CARDS), P.make_host_chip_mesh(PROCS, PROC_CARDS)
+    check(dm.local_devices == cards and hc.local_devices == cards
+          and dm.spans_processes("data") and hc.spans_processes("host"),
+          f"rank {rank}: meshes {dm}, {hc}")
+    (a, b), _, _, _ = load_pair(None)
+    calls = procs_paths(torch, a, dm, hc, rank)
+    det = Akaze(AkazeConfig(max_pts=MAX_PTS), mesh=dm)
+    x, y = (torch.as_tensor(v, device=cards[0]) for v in (a, b))
+    per = spatial_launches(det.plan_for(H, W), CARDS)
+    each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
+            "describe": 2, "hamming": 0}
+    info = {"rank": rank, "cards": [str(c) for c in cards]}
+
+    def pair():
+        return det.detect_and_compute_pair(x, y)
+
+    # the spatial pair: the counters set to 0 just before, read just after
+    tag = f"procs spatial pair rank {rank}"
+    for fn in counters().values():
+        fn.launches = 0
+    with programs.eager(), no_plain_versions(), \
+            launches_by_card() as by_card, \
+            recording(spatial, "sublevel") as tiled, \
+            recording(spatial, "octave") as resident, \
+            recording(k2mod, "_launch") as k2calls:
+        pair()
+        sync_all(torch, cards)
+    expect_by_card(cards, by_card, each, tag)
+    total = launch_counts()
+    check(total == {k: PROC_CARDS * v for k, v in each.items()},
+          f"[{tag}] eager launches {total}")
+    checks = per_card_checks(torch, cards, tiled, resident, k2calls, None,
+                             False, tag)
+    for fn in counters().values():
+        fn.launches = 0
+    with no_plain_versions():
+        pair()
+        sync_all(torch, cards)
+    check(launch_counts() == total,
+          f"[{tag}] captured launches {launch_counts()}, eager {total}")
+    hold_cards(torch, cards, pair, tag)
+    pt, prof = procs_turns(torch, cards, pair)
+    info["pair"] = dict(turns=pt, launches=[by_card[str(c)] for c in cards],
+                        checks=checks, kernel_ms=[{
+                            k: card_ms(prof, c, (n,)) for k, n in (
+                                ("tiled", "tiled_kernel<float>"),
+                                ("resident", "octave_kernel<float>"),
+                                ("describe", "describe_kernel"))}
+                            for c in cards])
+    # the dp step's and sharded_match's kernels, per card
+    tag = f"procs dp rank {rank}"
+    with programs.eager(), no_plain_versions(), \
+            launches_by_card() as dp_cards, \
+            recording(scale_space, "octave") as octaves, \
+            recording(k2mod, "_launch") as dk2, \
+            recording(k4mod, "_launch") as dk4:
+        calls["dp"]()
+        sync_all(torch, cards)
+    pairs = DP_PAIRS // CARDS
+    expect_by_card(cards, dp_cards, {k: pairs * v for k, v in
+                                     MAIN_LAUNCHES.items()}, tag)
+    info["dp_checks"] = per_card_checks(torch, cards, [], octaves, dk2, dk4,
+                                        False, tag)
+    tag = f"procs match rank {rank}"
+    with no_plain_versions(), launches_by_card() as m_cards, \
+            recording(k4mod, "_launch") as mk4:
+        calls["match"]()
+        sync_all(torch, cards)
+    expect_by_card(cards, m_cards, {"tiled": 0, "resident": 0,
+                                    "describe": 0, "hamming": 1}, tag)
+    info["match_checks"] = per_card_checks(torch, cards, [], [], None, mk4,
+                                           False, tag)
+    outs = {}
+    for name in PROCS_PATHS:
+        fn = calls[name]
+        tag = f"procs {name} rank {rank}"
+        if name == "match":             # sharded_match is no program
+            with no_plain_versions():
+                want = fn()
+                equal_outputs(torch, fn(), want, tag)
+        else:
+            want = hold_cards(torch, cards, fn, tag)
+        outs.update({f"{name}.{i}": t.cpu().numpy()
+                     for i, t in enumerate(pytree_leaves(want))})
+        info[name] = procs_turns(torch, cards, fn)[0]
+    keys = [r for r in programs.stats() if "Mesh(" in r["key"]]
+    names = {r["program"].rsplit(".", 1)[1] for r in keys}
+    check(names == PROCS_PROGRAMS, f"rank {rank}: mesh programs {names}")
+    for r in keys:
+        name = r["program"].rsplit(".", 1)[1]
+        check(not r["eager"] and r["cards"] == info["cards"]
+              and r["nccl"] == (name != "_dp_step"),
+              f"rank {rank}: mesh key {r}")
+    info["keys"] = [dict(program=r["program"].rsplit(".", 1)[1],
+                         key=r["key"][:160], eager=r["eager"],
+                         nccl=r["nccl"], cards=r["cards"],
+                         capture_s=r["capture_s"],
+                         pool_mib=[b / 2**20 for b in r["card_pool_bytes"]])
+                    for r in keys]
+    sync_all(torch, cards)
+    np.savez(os.path.join(outdir, f"out.{rank}.npz"), **outs)
+    with open(os.path.join(outdir, f"info.{rank}.json"), "w") as f:
+        json.dump(info, f)
+    leave_together(outdir, rank, PROCS, "procs")
+
+
+def leave_together(outdir: str, rank: int, world: int, tag: str):
+    """Exit once every rank has written its results, with no collective
+    at teardown (a barrier or destroy_process_group there can wait
+    forever on communicators that captured graphs hold)."""
+    open(os.path.join(outdir, f"done.{rank}"), "w").close()
+    t0 = time.monotonic()
+    while not all(os.path.exists(os.path.join(outdir, f"done.{r}"))
+                  for r in range(world)):
+        check(time.monotonic() - t0 < 120, f"rank {rank}: the other ranks "
+              f"did not finish")
+        time.sleep(0.05)
+    print(f"[{tag} rank {rank}] done", flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_procs(torch, cards, card, a, nccl_info):
+    """Two processes of two cards each on NCCL (``procs_worker``), JAX's
+    (host, chip) runtime shape: every path of ``procs_paths`` equal on
+    both ranks bit for bit to the one-process mesh of the same shape over
+    cuda:0..3 (called eagerly here: replicated outputs equal on both
+    ranks, per-shard outputs each rank's two shards); each rank's keys
+    captured over its two cards with their NCCL calls; eager and captured
+    walls per rank in turns with each card's idle share, printed beside
+    this process's one-process-over-four-cards captured wall and the four
+    NCCL ranks' captured walls (``nccl_info``).  Returns the workers'
+    infos."""
+    from akaze_tpu_torch import programs
+    from akaze_tpu_torch.parallel import make_host_chip_mesh, make_mesh
+    dm = make_mesh(CARDS, devices=cards)
+    hc = make_host_chip_mesh(PROCS, PROC_CARDS, devices=cards)
+    calls = procs_paths(torch, a, dm, hc, None)
+    with programs.eager(), no_plain_versions():
+        refs = {name: fn() for name, fn in calls.items()}
+    sync_all(torch, cards)
+    one = {}
+    with no_plain_versions():
+        for name, fn in calls.items():
+            one[name] = wall_times(torch, fn, cards, reps=3)
+    wall, got, info = run_ranks("--procs-worker", PROCS, "procs")
+    hold_ranks(refs, PROCS_PATHS, got, PROC_CARDS, "procs")
+    for r, inf in enumerate(info):
+        for name in PROCS_PATHS:
+            x = inf[name]
+            four = [i[name]["captured_ms"] for i in nccl_info
+                    if name in i]
+            print(f"[procs {name}] rank {r} on {', '.join(inf['cards'])}: "
+                  f"eager {spread(x['eager_ms'])}, "
+                  f"{'again' if name == 'match' else 'captured'} "
+                  f"{spread(x['captured_ms'])} ms (in turns); idle per card "
+                  f"(no compute kernel) eager "
+                  f"{', '.join(f'{v:.3f}' for v in x['eager_idle'])}, "
+                  f"captured "
+                  f"{', '.join(f'{v:.3f}' for v in x['captured_idle'])}; "
+                  f"NCCL kernels captured "
+                  f"{', '.join(f'{v:.3f}' for v in x['captured_nccl_ms'])} "
+                  f"ms; beside: one process over {CARDS} cards captured "
+                  f"{spread(one[name])}"
+                  + (f", four NCCL ranks captured "
+                     f"{min(four):.3f}-{max(four):.3f} ms" if four else ""))
+        print(f"[procs keys] rank {r}: " + "; ".join(
+            f"{k['program']} nccl={k['nccl']} cards {', '.join(k['cards'])}"
+            f" capture {k['capture_s']:.2f} s, pool + "
+            f"{', '.join(f'{m:.1f}' for m in k['pool_mib'])} MiB"
+            for k in inf["keys"]))
+    print(f"[procs] two processes of two cards each on NCCL "
+          f"(local_device_ids [0, 1] and [2, 3]), in {wall:.1f} s: every "
+          f"path ({', '.join(PROCS_PATHS)}) equal bit for bit on both ranks "
+          f"to the one-process mesh of the same shape over "
+          f"{', '.join(map(str, cards))}; every mesh key captured as one "
+          f"graph over the rank's two cards with the NCCL calls of both "
+          f"cards' communicators, replays = eager, no host sync, no new key "
+          f"on a repeat; K1, K2 and K4 = plain on every card; cards: {card}")
+    return info
+
+
+def procs_rows(info, k1_rep, k2_rep):
+    """The kernels line's two-process rows (``*_procs2x2``): per card (the
+    mean over the four cards, each card's numbers beside it) device ms per
+    pair of the spatial path from replays, launches per card of the eager
+    pair, errors, plain times and bounds from each card's own launches."""
+    srcs = {"tiled": ("akaze_tpu_torch/csrc/sublevel.cu", k1_rep),
+            "resident": ("akaze_tpu_torch/csrc/sublevel.cu", k1_rep),
+            "describe": ("akaze_tpu_torch/csrc/describe.cu", k2_rep)}
+    pairs = [i["pair"] for i in info]
+    per = [(p["launches"][j], p["checks"][j], p["kernel_ms"][j],
+            p["turns"]["captured_idle"][j])
+           for p in pairs for j in range(PROC_CARDS)]
+    rows = []
+    for kind, name in (("tiled", "tiled_kernel"),
+                       ("resident", "octave_kernel"),
+                       ("describe", "describe_kernel")):
+        if not per[0][0][kind]:
+            continue
+        if kind == "describe":
+            errs = [c["k2"]["max_abs_err"] for _, c, _, _ in per]
+            plains = [c["k2"]["plain_ms"] for _, c, _, _ in per]
+            bounds = [bound(c["k2"]["bytes"], 0) for _, c, _, _ in per]
+        else:
+            pre = "res_" if kind == "resident" else ""
+            errs = [c["k1"][pre + "abs_err" if pre else "max_abs_err"]
+                    for _, c, _, _ in per]
+            plains = [c["k1"][pre + "plain_ms"] for _, c, _, _ in per]
+            bounds = [bound(c["k1"][pre + "bytes"], c["k1"][pre + "ops"])
+                      for _, c, _, _ in per]
+        ms = [k[kind] for _, _, k, _ in per]
+        src, rep = srcs[kind]
+        rows.append(dict(
+            name=name + "_procs2x2", route="cuda", source=src, replaces=rep,
+            launches=per[0][0][kind],
+            launches_per_card=[n[kind] for n, _, _, _ in per],
+            max_abs_err=max(errs), ms=float(np.mean(ms)), ms_per_card=ms,
+            plain_ms=float(np.mean(plains)),
+            bound_ms=float(np.mean([b[0] for b in bounds])),
+            bound_by=bounds[0][1], library_ms=None,
+            idle_per_card=[i for _, _, _, i in per]))
+    return rows
 
 
 def cards_rows(sp, match, dp, k1_rep, k1_b1_rep, k2_rep, k4_rep):
@@ -4162,13 +4496,13 @@ def cards_rows(sp, match, dp, k1_rep, k1_b1_rep, k2_rep, k4_rep):
 
 
 def main_four(torch, args) -> int:
-    """``--cards 4``: the multi-device tier on four cards, in two forms:
+    """``--cards 4``: the multi-device tier on four cards, in three forms:
     one process over cuda:0..3 (every mesh path, eager and as one graph
     over the four cards per key, held bit for bit against the same mesh
-    with its four shards on cuda:0) and four processes of
-    one card each on NCCL (every path equal to the one-process mesh, its
-    keys captured); the memory a mesh saves per card.  Fails, and never
-    skips, with fewer than four cards."""
+    with its four shards on cuda:0), four processes of one card each on
+    NCCL and two processes of two cards each on NCCL (every path equal to
+    the one-process mesh, its keys captured); the memory a mesh saves per
+    card.  Fails, and never skips, with fewer than four cards."""
     n = torch.cuda.device_count()
     check(n >= CARDS, f"--cards {CARDS} needs {CARDS} visible cards, "
           f"{n} visible")
@@ -4210,14 +4544,19 @@ def main_four(torch, args) -> int:
           f"{time.perf_counter() - t0:.1f} s; no kernel's plain version ran "
           f"on a card inside one")
     t0 = time.perf_counter()
-    phase_nccl(torch, cards, card, a)
+    nccl = phase_nccl(torch, cards, card, a)
     print(f"[nccl] passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    procs = phase_procs(torch, cards, card, a, nccl)
+    print(f"[procs] passed in {time.perf_counter() - t0:.1f} s")
+    k2_rep = ("akaze_tpu/ops/pallas_describe.py:1107, "
+              "akaze_tpu/ops/pallas_describe.py:579")
     rows = cards_rows(sp["float"], match, dp,
                       "akaze_tpu/ops/pallas_sublevel.py:423",
-                      "akaze_tpu/ops/pallas_sublevel.py:346",
-                      "akaze_tpu/ops/pallas_describe.py:1107, "
-                      "akaze_tpu/ops/pallas_describe.py:579",
+                      "akaze_tpu/ops/pallas_sublevel.py:346", k2_rep,
                       "akaze_tpu/ops/pallas_match.py:103")
+    rows += procs_rows(procs, "akaze_tpu/ops/pallas_sublevel.py:346",
+                       k2_rep)
     kernels = [dict(row, route="cuda") for row in rows]
     for r in kernels:
         print(f"[kernels] {r['name']}: {r['launches']} launches per card, "
@@ -4248,10 +4587,13 @@ def main() -> int:
                     help="directory holding left.pgm and right.pgm")
     ap.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
                     help=f"{CARDS}: only the four-card phases (one process "
-                    f"over four cards, four NCCL processes); fails with "
-                    f"fewer than {CARDS} cards")
+                    f"over four cards, four NCCL processes, two NCCL "
+                    f"processes of two cards each); fails with fewer than "
+                    f"{CARDS} cards")
     ap.add_argument("--worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--procs-worker", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # the port is the checkout's own, beside this script, never an installed
@@ -4270,6 +4612,9 @@ def main() -> int:
     if args.worker:
         rank, port, outdir = args.worker
         return nccl_worker(torch, int(rank), int(port), outdir)
+    if args.procs_worker:
+        rank, port, outdir = args.procs_worker
+        return procs_worker(torch, int(rank), int(port), outdir)
     if args.cards == CARDS:
         return main_four(torch, args)
     dev = torch.device("cuda", 0)

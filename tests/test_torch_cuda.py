@@ -2298,3 +2298,39 @@ def test_four_nccl_processes_capture_equals_eager(cards4, tmp_path):
         for k in ref:
             want = ref[k][r:r + 1] if k in ("psum", "hc_psum") else ref[k]
             np.testing.assert_array_equal(g[k], want, err_msg=f"rank {r} {k}")
+
+
+@pytest.mark.cuda
+def test_two_processes_of_two_cards_equal_one_process(cards4, tmp_path):
+    """JAX's (host, chip) runtime on four cards: two processes of two
+    cards each (``local_device_ids=[2 * rank, 2 * rank + 1]``) on NCCL.
+    Each captures the spatial program, sharded PGO and landmark-sharded
+    BA as one graph over its two cards holding the NCCL calls of both
+    cards' communicators (in the worker: replays equal to the eager call
+    bit for bit, no host sync, no new key on a repeat, every key
+    ``nccl=True`` with the two cards); the sums and the gather over
+    ``"host"``, the halo exchange over ``data``, sharded PGO,
+    landmark-sharded BA, the multihost dp step and the spatial program
+    equal the one-process mesh of the same shape over cuda:0..3 bit for
+    bit, on every rank."""
+    import torch_mp_worker as worker
+    from akaze_tpu_torch.parallel import make_host_chip_mesh, make_mesh
+    from test_torch_multiprocess import (HIER_LOCAL, HIER_REPLICATED,
+                                         join_workers, spawn_workers)
+    prefix = str(tmp_path / "hier")
+    procs = spawn_workers(prefix, 2, "2x2", "cuda")
+    ref = worker.run_hier(make_host_chip_mesh(2, 2, devices=cards4),
+                          make_mesh(4, devices=cards4))
+    f = Akaze(AkazeConfig(max_pts=1024), mesh=make_mesh(
+        4, devices=cards4)).detect_and_compute(worker.spatial_image())
+    spatial = {"spatial_" + k: getattr(f, k).cpu().numpy() for k in (
+        "x", "y", "layer", "angle", "words", "valid", "count")}
+    got = join_workers(procs, prefix, timeout=300)
+    assert int(spatial["spatial_count"]) > 100
+    for r, g in enumerate(got):
+        assert int(g["captured_keys"]) >= 3
+        for k in ref:
+            want = ref[k] if k in HIER_REPLICATED else ref[k][HIER_LOCAL[r]]
+            np.testing.assert_array_equal(g[k], want, err_msg=f"rank {r} {k}")
+        for k, want in spatial.items():
+            np.testing.assert_array_equal(g[k], want, err_msg=f"rank {r} {k}")

@@ -555,7 +555,7 @@ def test_nccl_ranks_on_one_card_are_refused(monkeypatch):
     import torch.distributed as dist
     from akaze_tpu_torch.parallel import mesh as tmesh
     backend = ["cpu:gloo,cuda:nccl"]
-    peer = [None]                 # the other rank's card (None: ours)
+    peer = [None]                 # the other rank's cards (None: ours)
     inits, gathers = [], []
 
     def all_gather_object(out, obj, group=None):
@@ -578,7 +578,7 @@ def test_nccl_ranks_on_one_card_are_refused(monkeypatch):
         with pytest.raises(ValueError, match="both drive card"):
             tpar.initialize_distributed("tcp://localhost:1", 2, 1)
         assert inits == ["cpu:gloo,cuda:nccl"] and gathers == [None]
-        peer[0] = "another-host/GPU-a"
+        peer[0] = ["another-host/GPU-a"]
         assert tpar.initialize_distributed("tcp://localhost:1", 2, 1,
                                            local_device_ids=[0])
         backend[0] = "cpu:gloo,cuda:gloo"
@@ -586,6 +586,55 @@ def test_nccl_ranks_on_one_card_are_refused(monkeypatch):
         assert tpar.initialize_distributed("tcp://localhost:1", 2, 1,
                                            backend="gloo")
         assert len(gathers) == 2
+    finally:
+        tmesh.set_local_devices(None)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_overlapping_local_device_ids_are_refused(monkeypatch, rank):
+    """Two NCCL ranks given ``local_device_ids=[0, 1]`` and ``[1, 2]``
+    both own card 1: every rank raises when the group comes up, having
+    gathered every rank's cards over the CPU's backend and made no NCCL
+    call; ``[0, 1]`` and ``[2, 3]`` pass."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from akaze_tpu_torch.parallel import mesh as tmesh
+    ids = {0: [0, 1], 1: [1, 2]}
+    gathers = []
+
+    def all_gather_object(out, obj, group=None):
+        gathers.append(group)
+        out[:] = [[f"host/GPU-{i}" for i in ids[r]] for r in range(2)]
+        assert out[rank] == obj
+
+    def no_nccl(*args, **kwargs):
+        raise AssertionError("an NCCL call before the check")
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda b, **kw: None)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_backend_config",
+                        lambda group=None: "cpu:gloo,cuda:nccl")
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    for name in ("all_gather_into_tensor", "all_reduce", "broadcast",
+                 "barrier", "new_group", "batch_isend_irecv"):
+        monkeypatch.setattr(dist, name, no_nccl)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: ids[rank][0])
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(uuid=f"GPU-{d.index}"))
+    monkeypatch.setattr("socket.gethostname", lambda: "host")
+    try:
+        with pytest.raises(ValueError, match="ranks 0 and 1 both drive card "
+                           "host/GPU-1"):
+            tpar.initialize_distributed("tcp://localhost:1", 2, rank,
+                                        local_device_ids=ids[rank])
+        ids[1] = [2, 3]
+        assert tpar.initialize_distributed("tcp://localhost:1", 2, rank,
+                                           local_device_ids=ids[rank])
+        assert gathers == [None, None]
     finally:
         tmesh.set_local_devices(None)
 

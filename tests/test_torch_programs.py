@@ -445,11 +445,11 @@ def test_mesh_capture_rule(monkeypatch):
 
 
 def test_mesh_route_captures_collectives_on_nccl(monkeypatch):
-    """A key whose local shards share one card and whose collectives cross
-    processes on NCCL is captured (each rank's graph holds the NCCL
-    calls); on gloo it runs eagerly, as does a process of a process mesh
-    over several cards, whatever the backend.  A mesh over four cards of
-    one process is captured (one graph over the four)."""
+    """A key whose collectives cross processes on NCCL is captured, its
+    local shards on one card or on several (each rank's graph holds the
+    NCCL calls, one card per communicator); on gloo it runs eagerly.  A
+    mesh over four cards of one process is captured (one graph over the
+    four)."""
     cuda0 = torch.device("cuda", 0)
     route = programs.mesh_route
     sp = tpipe._jit_spatial_detect_and_compute
@@ -464,8 +464,9 @@ def test_mesh_route_captures_collectives_on_nccl(monkeypatch):
     assert not pgo.crosses_on_nccl((("mesh", nccl), ("axis", ("chip",))))
     cards = _process_mesh(monkeypatch, backend="cpu:gloo,cuda:nccl",
                           devices=["cuda:0", "cuda:1"])
-    assert route(cards, [cuda0], "data") == "eager"
-    assert route(cards, [cuda0], None) == "eager"
+    assert route(cards, [cuda0], "data") == "capture"
+    assert route(cards, [cuda0], None) == "capture"
+    assert sp.crosses_on_nccl((("mesh", cards),))
     gloo = _process_mesh(monkeypatch, n=1)
     assert route(gloo, [cuda0], "data") == "eager"
     assert route(gloo, [cuda0], None) == "capture"
@@ -570,27 +571,148 @@ def test_four_card_mesh_captures_every_mesh_program():
 @pytest.mark.parametrize("backend", ["cpu:gloo,cuda:gloo",
                                      "cpu:gloo,cuda:nccl"],
                          ids=["gloo", "nccl"])
-def test_process_mesh_over_two_cards_stays_eager(monkeypatch, backend):
+def test_process_mesh_over_two_cards_captures_on_nccl(monkeypatch,
+                                                      backend):
     """A process whose share of a process mesh lies on two of its cards
-    runs its mesh programs eagerly, on gloo and on NCCL (an NCCL rank
-    drives one card): the spatial program (collectives over the process
-    axis), with or without a traced tensor; one card of the same
-    process mesh is captured on NCCL only."""
+    captures its mesh programs on NCCL (one graph over its two cards,
+    each communicator carrying one card per rank, as JAX jits one program
+    per process) and runs them eagerly on gloo: the spatial program
+    (collectives over the process axis), with or without a traced tensor,
+    with the key's two cards; one card of the same process mesh takes
+    the same route.  A program without collectives is captured on
+    both."""
     cuda0 = torch.device("cuda", 0)
     route = programs.mesh_route
+    want = "capture" if backend.endswith("nccl") else "eager"
     cards = _process_mesh(monkeypatch, backend=backend,
                           devices=["cuda:0", "cuda:1"])
     assert cards.process_count == 2 and len(cards.local_devices) == 2
-    assert route(cards, [cuda0], "data") == "eager"
-    assert route(cards, [], ("data",)) == "eager"
-    assert route(cards, [cuda0], None) == "eager"
+    assert route(cards, [cuda0], "data") == want
+    assert route(cards, [], ("data",)) == want
+    assert route(cards, [cuda0], None) == "capture"
     plan = tpipe.build_plan(64, 80, AkazeConfig(max_pts=64, noctaves=1))
     sp = tpipe._jit_spatial_detect_and_compute
-    assert sp.route(fake((64, 80), "cuda:0"), plan, cards, False,
-                    True) == "eager"
+    args = (fake((64, 80), "cuda:0"), plan, cards, False, True)
+    assert sp.route(*args) == want
+    key, leaves, statics, _ = sp.key(*args)
+    assert sp._route(statics, leaves)[2] == CARDS4[:2]
+    assert sp.crosses_on_nccl(statics) == (want == "capture")
     one = _process_mesh(monkeypatch, n=1, backend=backend)
-    assert sp.route(fake((64, 80), "cuda:0"), plan, one, False, True) == (
-        "capture" if backend.endswith("nccl") else "eager")
+    assert sp.route(fake((64, 80), "cuda:0"), plan, one, False,
+                    True) == want
+    if want == "capture":
+        # ``stats()`` lists the captured key with both of its cards
+        entry = programs._Entry(object(), CARDS4[:2], [], [], [], None, [],
+                                [1 << 20, 2 << 20], 0.5, 0.25)
+        monkeypatch.setitem(sp.entries, key, entry)
+        row = next(r for r in programs.stats() if r["program"] == sp.name
+                   and not r["eager"])
+        assert row["nccl"] is True
+        assert row["cards"] == ["cuda:0", "cuda:1"]
+        assert row["card_pool_bytes"] == [1 << 20, 2 << 20]
+
+
+class _Group:
+    """A process group made by ``_recording_dist``'s ``new_group``."""
+
+    def __init__(self, ranks):
+        self.ranks = list(ranks)
+
+
+def _recording_dist(monkeypatch, rank):
+    """torch.distributed answering as process ``rank`` of 2 on
+    "cpu:gloo,cuda:nccl", its ``new_group`` making ``_Group``s, and the
+    calls the collectives make across processes recorded, not run:
+    returns the list of (kind, group, devices of the call's tensors)."""
+    import torch.distributed as dist
+    from akaze_tpu_torch.parallel import distributed as tdist
+    calls = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size",
+                        lambda group=None: 2 if group is None
+                        else len(group.ranks))
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: rank)
+    monkeypatch.setattr(dist, "get_backend_config",
+                        lambda group=None: "cpu:gloo,cuda:nccl")
+    monkeypatch.setattr(dist, "new_group",
+                        lambda ranks=None, backend=None: _Group(ranks))
+    monkeypatch.setattr(
+        dist, "all_gather_into_tensor",
+        lambda out, x, group=None: calls.append(
+            ("all_gather_into_tensor", group, {out.device, x.device})))
+    monkeypatch.setattr(dist, "P2POp",
+                        lambda op, t, peer, group: (op, t, peer, group))
+
+    def batch(ops):
+        groups = {op[3] for op in ops}
+        assert len(groups) == 1, "one batch mixes groups"
+        calls.append(("batch_isend_irecv", groups.pop(),
+                      {op[1].device for op in ops}))
+        return []
+
+    monkeypatch.setattr(dist, "batch_isend_irecv", batch)
+    monkeypatch.setattr(tdist, "_GROUPS", {})
+    return calls
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_cross_process_steps_carry_one_card_per_group(monkeypatch, rank):
+    """JAX's (host, chip) runtime on two processes of two cards each
+    (process ``rank`` owns cuda:2r and cuda:2r+1), on fake CUDA tensors
+    with a recording stand-in for torch.distributed: every call across
+    processes that ``hier_psum``, ``psum`` and ``all_gather`` over
+    ``"host"`` and ``extend_rows`` over a ``data`` axis of two shards per
+    process make (``sharded_match`` gathers through ``all_gather``)
+    carries the tensors of one card,
+    on the group of that card's role (each group always on one card: an
+    NCCL communicator takes one card per rank); a second mesh of the same
+    shape and cards is equal to the first and reuses its groups."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from akaze_tpu_torch.parallel import collectives as col
+    from akaze_tpu_torch.parallel import distributed as tdist
+    from akaze_tpu_torch.parallel import make_host_chip_mesh
+    calls = _recording_dist(monkeypatch, rank)
+    cards = CARDS4[2 * rank:2 * rank + 2]
+    hc = make_host_chip_mesh(2, 2, devices=cards)
+    dm = make_mesh(4, devices=cards)
+    assert hc.local_devices == dm.local_devices == cards
+    assert hc.spans_processes("host") and dm.spans_processes("data")
+    axes = ("chip", "host")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        g = torch.empty(16, 5, device=cards[0])
+        xs = col.shard(g, hc, axes)
+        tdist.hier_psum(xs, hc)
+        n_sum = len(calls)
+        col.psum(xs, hc, "host")
+        col.all_gather(xs, hc, "host")
+        n_host = len(calls)
+        col.extend_rows(col.shard(g, dm), dm, "data", 2)
+    slots = tdist.role_groups(hc, [("slot", 0), ("slot", 1)])
+    # hier_psum folds the chips first, then gathers once, on slot 0
+    assert [(c[0], c[1], c[2]) for c in calls[:n_sum]] == [
+        ("all_gather_into_tensor", slots[("slot", 0)], {cards[0]})]
+    # over "host" alone: once per chip index, on that chip's card
+    for kind, group, devs in calls[n_sum:n_host]:
+        assert len(devs) == 1
+        assert group is slots[("slot", cards.index(next(iter(devs))))]
+    assert len(calls[n_sum:n_host]) == 4
+    # the seam between the processes: p = 0 on its last card, 1 on its first
+    (kind, seam, devs), = calls[n_host:]
+    assert kind == "batch_isend_irecv" and seam.ranks == [0, 1]
+    assert devs == {cards[1] if rank == 0 else cards[0]}
+    assert seam is tdist.role_groups(dm, [("seam", 0, 1, 0)])[
+        ("seam", 0, 1, 0)]
+    # every call carries one card; every group always the same card
+    on = {}
+    for kind, group, devs in calls:
+        assert len(devs) == 1, (kind, devs)
+        on.setdefault(id(group), set()).update(devs)
+    assert all(len(d) == 1 for d in on.values()), on
+    # a second mesh of the same shape and cards: equal, the same groups
+    again = make_host_chip_mesh(2, 2, devices=cards)
+    assert again == hc and hash(again) == hash(hc)
+    assert tdist.role_groups(again, [("slot", 1)])[("slot", 1)] is \
+        slots[("slot", 1)]
 
 
 def test_mesh_mixing_the_cpu_and_a_card_runs_eagerly():

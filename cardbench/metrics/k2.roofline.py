@@ -1,0 +1,13 @@
+"""K2 (``describe_kernel``) against its bound, in %: the least time of the
+traced stretch's launches at their live slots (``roofline``) over the
+profiler's device time of the kernel."""
+
+from cardbench import roofline
+
+
+def read(trace):
+    calls = trace.facts.get("k2", ())
+    spent = trace.kernel_s("describe_kernel")
+    if not calls or not spent:
+        return None
+    return 100.0 * sum(roofline.k2_bound_s(*c) for c in calls) / spent

@@ -29,6 +29,7 @@ from .descriptor import (WSIZE, orient_describe_multi, plane_dtype,
 from .detect import build_padded_pyramid, detect_keypoints
 from .match import Matches, match
 from .plan import PipelinePlan, build_plan
+from . import tracing
 from .programs import jit
 from .scale_space import OctaveData, build_scale_space
 
@@ -199,7 +200,11 @@ class Akaze:
     ``spatial_fallback``: with a mesh, shapes the spatial tier cannot
     shard run the single-device program on the mesh's first device instead
     of raising (for callers feeding mixed frame sizes, such as the SLAM
-    front end); ``spatial_fallbacks`` counts those images."""
+    front end); ``spatial_fallbacks`` counts those images.
+
+    Each call is one request of ``tracing``: ``akaze.upload`` (the images
+    to ``device``: a host array's copy and cast) and ``akaze.detect`` (the
+    program's call), or ``akaze.match``."""
 
     def __init__(self, config: Optional[AkazeConfig] = None,
                  fixed: bool = False, device=None, mesh=None,
@@ -254,28 +259,35 @@ class Akaze:
         """image: [H, W] (numpy or tensor), float in [0, 1], or raw 0..255
         on the fixed path.  ``describe=False``: keypoints only, with angle
         0 and zero words (no plane stack, no K2)."""
-        x = _as_images(image, self.device, self.fixed)
-        plan = self.plan_for(*x.shape)
-        if self.sharded(*x.shape, describe):
-            return _jit_spatial_detect_and_compute(x, plan, self.mesh,
-                                                   self.fixed, describe)
-        if self.mesh is not None:
-            self.spatial_fallbacks += 1
-        return _jit_detect_and_compute(x, plan, self.fixed, describe)
+        with tracing.request():
+            with tracing.span("akaze.upload"):
+                x = _as_images(image, self.device, self.fixed)
+            plan = self.plan_for(*x.shape)
+            with tracing.span("akaze.detect"):
+                if self.sharded(*x.shape, describe):
+                    return _jit_spatial_detect_and_compute(
+                        x, plan, self.mesh, self.fixed, describe)
+                if self.mesh is not None:
+                    self.spatial_fallbacks += 1
+                return _jit_detect_and_compute(x, plan, self.fixed,
+                                               describe)
 
     def detect_and_compute_pair(self, image_a, image_b):
         """Both images of a pair in one batch.  Returns (fa, fb).  With a
         mesh each image runs the spatial program instead (per-image memory
         is why the mesh exists; batching the pair onto one device would
         defeat it)."""
-        a = _as_images(image_a, self.device, self.fixed)
-        b = _as_images(image_b, self.device, self.fixed)
-        if a.shape != b.shape:
-            raise ValueError("pair batching needs equal shapes")
-        if self.mesh is not None:
-            return self.detect_and_compute(a), self.detect_and_compute(b)
-        return _jit_detect_and_compute_pair(a, b, self.plan_for(*a.shape),
-                                            self.fixed)
+        with tracing.request():
+            with tracing.span("akaze.upload"):
+                a = _as_images(image_a, self.device, self.fixed)
+                b = _as_images(image_b, self.device, self.fixed)
+            if a.shape != b.shape:
+                raise ValueError("pair batching needs equal shapes")
+            if self.mesh is not None:
+                return self.detect_and_compute(a), self.detect_and_compute(b)
+            with tracing.span("akaze.detect"):
+                return _jit_detect_and_compute_pair(
+                    a, b, self.plan_for(*a.shape), self.fixed)
 
     @staticmethod
     def match(f1: Features, f2: Features, max_dist: int = 96) -> Matches:
@@ -284,8 +296,9 @@ class Akaze:
         akazed.cu:11).  As in the JAX package, ``config.max_dist`` is not
         read here: a caller that wants it passes it (as the JAX package's
         ``cli.py:119`` does)."""
-        return _jit_match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
-                          f2.y, max_dist)
+        with tracing.request(), tracing.span("akaze.match"):
+            return _jit_match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
+                              f2.y, max_dist)
 
 
 def features_from_numpy(f, device, max_pts: Optional[int] = None

@@ -109,6 +109,13 @@ on the caller's strides would differ from the graph).
 ``jax.clear_caches()``).  The cache lives in each ``Program``, at module
 level, so every caller of one program shares its graphs (``Akaze``
 instances with equal plans share one pair program).
+
+With ``tracing`` on, the first call of a key is a ``program.capture``
+span (warm-up and capture, opened outside the capture itself), and every
+later call a ``program.replay`` span holding ``program.inputs`` (the
+buffer copies), ``program.graph`` (the replay and the cross-card waits)
+and ``program.outputs`` (the clones).  No span opens inside a captured
+function, where no Python runs on a replay.
 """
 
 from __future__ import annotations
@@ -121,6 +128,8 @@ from typing import List
 
 import torch
 from torch.utils import _pytree as pytree
+
+from . import tracing
 
 _PROGRAMS: List["Program"] = []
 _EAGER = 0          # depth of eager() contexts
@@ -427,21 +436,24 @@ class _Entry:
         _release(self.held)
 
     def run(self, leaves):
-        for buf, x in zip(self.inputs, leaves):
-            if isinstance(x, torch.Tensor):
-                buf.copy_(x)
-            elif buf is not None:
-                buf.fill_(x)
-        home = torch.cuda.current_stream(self.cards[0])
-        others = [torch.cuda.current_stream(c) for c in self.cards[1:]]
-        _wait(home, others)
-        self.graph.replay()
-        for s in others:
-            _wait(s, [home])
+        with tracing.span("program.inputs"):
+            for buf, x in zip(self.inputs, leaves):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x)
+                elif buf is not None:
+                    buf.fill_(x)
+        with tracing.span("program.graph"):
+            home = torch.cuda.current_stream(self.cards[0])
+            others = [torch.cuda.current_stream(c) for c in self.cards[1:]]
+            _wait(home, others)
+            self.graph.replay()
+            for s in others:
+                _wait(s, [home])
         for fn, n in self.deltas:
             fn.launches += n
         self.replays += 1
-        return pytree.tree_unflatten(_fresh(self.outputs), self.out_spec)
+        with tracing.span("program.outputs"):
+            return pytree.tree_unflatten(_fresh(self.outputs), self.out_spec)
 
 
 class Program:
@@ -523,9 +535,12 @@ class Program:
                               [_eager_input(x, device) for x in leaves])
         entry = self.entries.get(key)
         if entry is None:
-            return self._capture(key, leaves, statics, spec, device, cards)
+            with tracing.span("program.capture"):
+                return self._capture(key, leaves, statics, spec, device,
+                                     cards)
         self.replays += 1
-        return entry.run(leaves)
+        with tracing.span("program.replay"):
+            return entry.run(leaves)
 
     def _call(self, statics, spec, inputs):
         return self.fn(**dict(statics), **pytree.tree_unflatten(inputs, spec))

@@ -26,15 +26,13 @@ axis; smaller frames fall back to the single-device program
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import programs
+from .. import programs, tracing
 from ..config import AkazeConfig
 from ..geometry import se3_compose, se3_inverse, triangulate
 from ..geometry.ransac import (_ransac_essential, make_key, normalize_points,
@@ -66,8 +64,11 @@ class Keyframe(NamedTuple):
 
 
 def to_numpy(v) -> np.ndarray:
-    """A tensor (on any device) or array as a numpy array."""
+    """A tensor (on any device) or array as a numpy array.  Every read of
+    a tensor to the host on the SLAM path comes through here, and counts
+    as one ``host_syncs`` of ``tracing``."""
     if isinstance(v, torch.Tensor):
+        tracing.count("host_syncs")
         return v.detach().cpu().numpy()
     return np.asarray(v)
 
@@ -160,9 +161,6 @@ class VisualOdometry:
         self.overflow_frames: List[int] = []
         self._frame_idx = 0
         self._kf_inliers0 = None           # inlier count right after a kf
-        # opt-in host wall-time profile: a defaultdict(float) accumulating
-        # seconds per section
-        self.prof = None
         self._scale = 1.0
         self._last_depth_med = None
         # per-kf-slot metric depths of the previous frame's triangulation
@@ -173,22 +171,11 @@ class VisualOdometry:
         self._key, sub = split_key(self._key)
         return sub
 
-    @contextlib.contextmanager
-    def _timed(self, section: str):
-        if self.prof is None:
-            yield
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self.prof[section] += time.perf_counter() - t0
-
     def process(self, image) -> tuple:
         """Ingest one frame; returns its (R, t) world->camera pose."""
-        with self._timed("vo.detect"):
+        with tracing.span("vo.detect"):
             feats = self.akaze.detect_and_compute(image)
-        self.last_overflow = bool(feats.overflow)
+            self.last_overflow = bool(to_numpy(feats.overflow))
         if self.last_overflow:
             self.overflow_frames.append(self._frame_idx)
         intr = self.intr
@@ -201,14 +188,14 @@ class VisualOdometry:
             return R, t
 
         kf = self.keyframes[-1]
-        with self._timed("vo.two_view"):
+        with tracing.span("vo.two_view"):
             m, res, X1, z1, z2 = _two_view(
                 self._next_key(), kf.features, feats,
                 intr.fx, intr.fy, intr.cx, intr.cy, self.threshold,
                 sampler=self.sampler)
-        with self._timed("vo.fetch"):
-            n_inl = int(res.num_inliers)
-            inl = to_numpy(res.inliers)
+            with tracing.span("vo.fetch"):
+                n_inl = int(to_numpy(res.num_inliers))
+                inl = to_numpy(res.inliers)
 
         if n_inl < self.min_inliers:
             # tracking failure: hold the last pose
@@ -223,68 +210,77 @@ class VisualOdometry:
             self._frame_idx += 1
             return R, t
 
-        # scale propagation (see the JAX module for the derivation): a
-        # landmark's depth at unit baseline is z_metric / baseline, so the
-        # per-landmark ratio of stored metric depths to this frame's depths
-        # measures the metric baseline with the structure cancelled
-        z_all = to_numpy(z1)
-        ok = inl & (z_all > 0)
-        z = z_all[inl]
-        depth_med = float(np.median(z[z > 0])) if (z > 0).any() else None
-        scale = self._scale
-        kf_common = (ok & kf.z_ok) if kf.z is not None else np.zeros(0)
-        if kf.z is not None and kf_common.sum() >= 8:
-            scale = float(np.median(kf.z[kf_common] / z_all[kf_common]))
-            scale = float(np.clip(scale, 0.1 * self._scale,
-                                  10.0 * self._scale))
-        elif self._last_z is not None:
-            common = ok & self._last_z_ok
-            if common.sum() >= 8:
-                scale = float(np.median(self._last_z[common]
-                                        / z_all[common]))
+        with tracing.span("vo.scale"):
+            # scale propagation (see the JAX module for the derivation):
+            # a landmark's depth at unit baseline is z_metric / baseline,
+            # so the per-landmark ratio of stored metric depths to this
+            # frame's depths measures the metric baseline with the
+            # structure cancelled
+            z_all = to_numpy(z1)
+            ok = inl & (z_all > 0)
+            z = z_all[inl]
+            depth_med = (float(np.median(z[z > 0])) if (z > 0).any()
+                         else None)
+            scale = self._scale
+            kf_common = ((ok & kf.z_ok) if kf.z is not None
+                         else np.zeros(0))
+            if kf.z is not None and kf_common.sum() >= 8:
+                scale = float(np.median(kf.z[kf_common]
+                                        / z_all[kf_common]))
+                scale = float(np.clip(scale, 0.1 * self._scale,
+                                      10.0 * self._scale))
+            elif self._last_z is not None:
+                common = ok & self._last_z_ok
+                if common.sum() >= 8:
+                    scale = float(np.median(self._last_z[common]
+                                            / z_all[common]))
+                elif self._last_depth_med and depth_med:
+                    scale = (self._scale * self._last_depth_med
+                             / max(depth_med, 1e-6))
+                scale = float(np.clip(scale, 0.1 * self._scale,
+                                      10.0 * self._scale))
             elif self._last_depth_med and depth_med:
                 scale = (self._scale * self._last_depth_med
                          / max(depth_med, 1e-6))
-            scale = float(np.clip(scale, 0.1 * self._scale,
-                                  10.0 * self._scale))
-        elif self._last_depth_med and depth_med:
-            scale = self._scale * self._last_depth_med / max(depth_med, 1e-6)
-            scale = float(np.clip(scale, 0.1 * self._scale,
-                                  10.0 * self._scale))
-        # metric depths of this triangulation, for the next frame's ratio
-        self._last_z = z_all * scale
-        self._last_z_ok = ok
+                scale = float(np.clip(scale, 0.1 * self._scale,
+                                      10.0 * self._scale))
+            # metric depths of this triangulation, for the next frame's
+            # ratio
+            self._last_z = z_all * scale
+            self._last_z_ok = ok
 
-        # compose: T_cur_world = T_rel * T_kf_world
-        R_rel = to_numpy(res.R)
-        t_rel = to_numpy(res.t) * scale
-        R = R_rel @ kf.R
-        t = R_rel @ kf.t + t_rel
-        self.poses.append((R.astype(np.float32), t.astype(np.float32)))
+            # compose: T_cur_world = T_rel * T_kf_world
+            R_rel = to_numpy(res.R)
+            t_rel = to_numpy(res.t) * scale
+            R = R_rel @ kf.R
+            t = R_rel @ kf.t + t_rel
+            self.poses.append((R.astype(np.float32),
+                               t.astype(np.float32)))
 
         if self._kf_inliers0 is None:
             self._kf_inliers0 = max(n_inl, 1)
         if n_inl < self.kf_ratio * self._kf_inliers0:
-            # seed the new keyframe's slots with metric depths: z2 is the
-            # depth in this frame of each matched landmark at unit
-            # baseline, and m.index maps old-kf slots to this frame's
-            midx = to_numpy(m.index)
-            z2_m = to_numpy(z2) * scale
-            n_slots = z_all.shape[0]
-            zref = np.zeros(n_slots, np.float32)
-            zok = np.zeros(n_slots, bool)
-            sel = ok & (midx >= 0) & (z2_m > 0)
-            tgt = midx[sel]
-            zref[tgt] = z2_m[sel]
-            zok[tgt] = True
-            self.keyframes.append(Keyframe(
-                self._frame_idx, feats, R.astype(np.float32),
-                t.astype(np.float32), zref, zok))
-            self._kf_inliers0 = None
-            self._scale = scale
-            self._last_depth_med = None
-            self._last_z = zref
-            self._last_z_ok = zok
+            with tracing.span("vo.keyframe"):
+                # seed the new keyframe's slots with metric depths: z2 is
+                # the depth in this frame of each matched landmark at unit
+                # baseline, and m.index maps old-kf slots to this frame's
+                midx = to_numpy(m.index)
+                z2_m = to_numpy(z2) * scale
+                n_slots = z_all.shape[0]
+                zref = np.zeros(n_slots, np.float32)
+                zok = np.zeros(n_slots, bool)
+                sel = ok & (midx >= 0) & (z2_m > 0)
+                tgt = midx[sel]
+                zref[tgt] = z2_m[sel]
+                zok[tgt] = True
+                self.keyframes.append(Keyframe(
+                    self._frame_idx, feats, R.astype(np.float32),
+                    t.astype(np.float32), zref, zok))
+                self._kf_inliers0 = None
+                self._scale = scale
+                self._last_depth_med = None
+                self._last_z = zref
+                self._last_z_ok = zok
         else:
             # commit the scale with the rolling depth median, so that the
             # telescoped product stays anchored at the keyframe epoch

@@ -21,16 +21,14 @@ landmark blocks with their observations (``parallel/sharded_ba.py``), over
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import AkazeConfig
-from ..descriptor import words_to_numpy
 from ..geometry import se3_compose, se3_inverse
 from ..match import match
 from ..pipeline import Features
@@ -110,8 +108,8 @@ class KeyframeIndex:
         return sig / n if n > 0 else sig
 
     def add(self, feats: Features) -> None:
-        self._sigs.append(self._signature(words_to_numpy(feats.words),
-                                          to_numpy(feats.valid)))
+        self._sigs.append(self._signature(
+            to_numpy(feats.words).view(np.uint32), to_numpy(feats.valid)))
         self._feats.append(feats)
 
     def candidates(self, query_idx: int, gap: int, top: int) -> np.ndarray:
@@ -203,20 +201,6 @@ class SlamSystem:
         self.index = KeyframeIndex()
         self._n_kf_seen = 1
         self._since_opt = 0
-        # opt-in host wall-time profile: a defaultdict(float) of seconds
-        # per section
-        self.prof = None
-
-    @contextlib.contextmanager
-    def _timed(self, section: str):
-        if self.prof is None:
-            yield
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self.prof[section] += time.perf_counter() - t0
 
     @staticmethod
     def _relative(Ra, ta, Rb, tb):
@@ -285,7 +269,7 @@ class SlamSystem:
                 self.vo._next_key(), new.features, old.features,
                 self.intr.fx, self.intr.fy, self.intr.cx, self.intr.cy,
                 self.vo.threshold, sampler=self.vo.sampler)
-            n_inl = int(res.num_inliers)
+            n_inl = int(to_numpy(res.num_inliers))
             if n_inl < self.cfg.loop_min_inliers:
                 continue
             scale_info = self._loop_scale(new, res, z1)
@@ -298,33 +282,35 @@ class SlamSystem:
             accepted.append(old_idx)
 
     def process(self, image) -> tuple:
-        n_before = len(self.vo.keyframes)
-        with self._timed("vo.process"):
+        """Ingest one frame (one request of ``tracing``, its root span
+        ``slam.frame``); returns its (R, t) world->camera pose."""
+        with tracing.request(), tracing.span("slam.frame"):
+            n_before = len(self.vo.keyframes)
             pose = self.vo.process(image)
-        if len(self.vo.keyframes) > n_before:
-            new_idx = len(self.vo.keyframes) - 1
-            with self._timed("index.add"):
-                self.index.add(self.vo.keyframes[new_idx].features)
-            if n_before > 0:
-                prev = self.vo.keyframes[new_idx - 1]
-                new = self.vo.keyframes[new_idx]
-                R_ij, t_ij = self._relative(prev.R, prev.t, new.R, new.t)
-                self.edges.append((new_idx - 1, new_idx, R_ij, t_ij,
-                                   self.cfg.odom_weight))
-                with self._timed("loop_closure"):
-                    self._try_loop_closure(new_idx)
-                self._since_opt += 1
-                if self._since_opt >= self.cfg.optimize_every:
-                    with self._timed("pgo"):
-                        self.optimize()
-                    self._since_opt = 0
-                if (self.cfg.local_ba_every
-                        and (new_idx + 1) % self.cfg.local_ba_every == 0):
-                    with self._timed("local_ba"):
-                        self.local_bundle_adjust(
-                            window=self.cfg.local_ba_window,
-                            max_pts=self.cfg.local_ba_points)
-        return pose
+            if len(self.vo.keyframes) > n_before:
+                new_idx = len(self.vo.keyframes) - 1
+                with tracing.span("slam.index_add"):
+                    self.index.add(self.vo.keyframes[new_idx].features)
+                if n_before > 0:
+                    prev = self.vo.keyframes[new_idx - 1]
+                    new = self.vo.keyframes[new_idx]
+                    R_ij, t_ij = self._relative(prev.R, prev.t, new.R, new.t)
+                    self.edges.append((new_idx - 1, new_idx, R_ij, t_ij,
+                                       self.cfg.odom_weight))
+                    with tracing.span("slam.loop_closure"):
+                        self._try_loop_closure(new_idx)
+                    self._since_opt += 1
+                    if self._since_opt >= self.cfg.optimize_every:
+                        with tracing.span("slam.pgo"):
+                            self.optimize()
+                        self._since_opt = 0
+                    every = self.cfg.local_ba_every
+                    if every and (new_idx + 1) % every == 0:
+                        with tracing.span("slam.local_ba"):
+                            self.local_bundle_adjust(
+                                window=self.cfg.local_ba_window,
+                                max_pts=self.cfg.local_ba_points)
+            return pose
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -340,47 +326,52 @@ class SlamSystem:
         kfs = self.vo.keyframes
         if len(kfs) < 2 or not self.edges:
             return
-        K, E = len(kfs), len(self.edges)
-        kcap = _bucket(K)
-        ecap = _bucket(E)
-        if self.mesh is not None:
-            from ..parallel.mesh import axis_size
-            ecap += (-ecap) % axis_size(self.mesh, self.mesh_axis)
-        R0 = np.tile(np.eye(3, dtype=np.float32), (kcap, 1, 1))
-        t0 = np.zeros((kcap, 3), np.float32)
-        R0[:K] = np.stack([k.R for k in kfs])
-        t0[:K] = np.stack([k.t for k in kfs])
-        Re = np.tile(np.eye(3, dtype=np.float32), (ecap, 1, 1))
-        te = np.zeros((ecap, 3), np.float32)
-        ij = np.zeros((2, ecap), np.int32)
-        w = np.zeros(ecap, np.float32)
-        for e, (i, j, R_ij, t_ij, wt) in enumerate(self.edges):
-            ij[0, e], ij[1, e] = i, j
-            Re[e], te[e], w[e] = R_ij, t_ij, wt
-        g = PoseGraph(i=self._tensor(ij[0]), j=self._tensor(ij[1]),
-                      R_ij=self._tensor(Re), t_ij=self._tensor(te),
-                      weight=self._tensor(w))
-        # pads are gauge-fixed so their (unconstrained) updates stay zero
-        fixed = np.zeros(kcap, bool)
-        fixed[0] = True
-        fixed[K:] = True
-        if self.mesh is not None:
-            from ..parallel.sharded_pgo import sharded_optimize_pose_graph
-            R1, t1, cost = sharded_optimize_pose_graph(
-                self._tensor(R0), self._tensor(t0), g, self.mesh,
-                iters=iters, axis=self.mesh_axis,
-                fixed_mask=self._tensor(fixed), robust=self.cfg.robust,
-                robust_delta=self.cfg.robust_delta)
-        else:
-            R1, t1, cost = optimize_pose_graph(
-                self._tensor(R0), self._tensor(t0), g, iters=iters,
-                fixed_mask=self._tensor(fixed), robust=self.cfg.robust,
-                robust_delta=self.cfg.robust_delta)
-        R1 = to_numpy(R1)
-        t1 = to_numpy(t1)
-        for k in range(len(kfs)):
-            kfs[k] = kfs[k]._replace(R=R1[k], t=t1[k])
-        return float(cost)
+        with tracing.span("pgo.pad"):
+            K, E = len(kfs), len(self.edges)
+            kcap = _bucket(K)
+            ecap = _bucket(E)
+            if self.mesh is not None:
+                from ..parallel.mesh import axis_size
+                ecap += (-ecap) % axis_size(self.mesh, self.mesh_axis)
+            R0 = np.tile(np.eye(3, dtype=np.float32), (kcap, 1, 1))
+            t0 = np.zeros((kcap, 3), np.float32)
+            R0[:K] = np.stack([k.R for k in kfs])
+            t0[:K] = np.stack([k.t for k in kfs])
+            Re = np.tile(np.eye(3, dtype=np.float32), (ecap, 1, 1))
+            te = np.zeros((ecap, 3), np.float32)
+            ij = np.zeros((2, ecap), np.int32)
+            w = np.zeros(ecap, np.float32)
+            for e, (i, j, R_ij, t_ij, wt) in enumerate(self.edges):
+                ij[0, e], ij[1, e] = i, j
+                Re[e], te[e], w[e] = R_ij, t_ij, wt
+            g = PoseGraph(i=self._tensor(ij[0]), j=self._tensor(ij[1]),
+                          R_ij=self._tensor(Re), t_ij=self._tensor(te),
+                          weight=self._tensor(w))
+            # pads are gauge-fixed so their (unconstrained) updates stay zero
+            fixed = np.zeros(kcap, bool)
+            fixed[0] = True
+            fixed[K:] = True
+            R0, t0, fixed = (self._tensor(R0), self._tensor(t0),
+                             self._tensor(fixed))
+        with tracing.span("pgo.solve"):
+            if self.mesh is not None:
+                from ..parallel.sharded_pgo import sharded_optimize_pose_graph
+                R1, t1, cost = sharded_optimize_pose_graph(
+                    R0, t0, g, self.mesh, iters=iters, axis=self.mesh_axis,
+                    fixed_mask=fixed, robust=self.cfg.robust,
+                    robust_delta=self.cfg.robust_delta)
+            else:
+                R1, t1, cost = optimize_pose_graph(
+                    R0, t0, g, iters=iters, fixed_mask=fixed,
+                    robust=self.cfg.robust,
+                    robust_delta=self.cfg.robust_delta)
+        with tracing.span("pgo.writeback"):
+            R1 = to_numpy(R1)
+            t1 = to_numpy(t1)
+            for k in range(len(kfs)):
+                kfs[k] = kfs[k]._replace(R=R1[k], t=t1[k])
+            cost = float(to_numpy(cost))
+        return cost
 
     def local_bundle_adjust(self, window: int = 5, max_pts: int = 512,
                             iters: int = 6):
@@ -397,57 +388,61 @@ class SlamSystem:
         feats = [k.features for k in kfs[lo:]]
         poses = [(k.R, k.t) for k in kfs[lo:]]
         try:
-            with self._timed("local_ba.build"):
+            with tracing.span("local_ba.build"):
                 Rs, ts, X0, prob = build_local_ba(feats, poses, self.intr,
                                                   max_pts=max_pts)
         except ValueError:
             return None
 
-        C = Rs.shape[0]
-        ccap = max(window, C)
-        Pn = X0.shape[0]
-        pcap = min(_bucket(Pn), max(max_pts, Pn))
-        M = prob.cam.shape[0]
-        mcap = _bucket(M)
-        Rp = np.tile(np.eye(3, dtype=np.float32), (ccap, 1, 1))
-        tp = np.zeros((ccap, 3), np.float32)
-        Rp[:C] = to_numpy(Rs)
-        tp[:C] = to_numpy(ts)
-        Xp = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32), (pcap, 1))
-        Xp[:Pn] = to_numpy(X0)
-        prob = BAProblem(
-            cam=self._tensor(np.pad(to_numpy(prob.cam), (0, mcap - M))),
-            pt=self._tensor(np.pad(to_numpy(prob.pt), (0, mcap - M))),
-            uv=self._tensor(np.pad(to_numpy(prob.uv),
-                                   ((0, mcap - M), (0, 0)))),
-            w=self._tensor(np.pad(to_numpy(prob.w), (0, mcap - M))))
-        fixed = np.zeros(ccap, bool)
-        fixed[0] = True
-        fixed[C:] = True
-        if self.mesh is not None:
-            from ..parallel.mesh import axis_size
-            from ..parallel.sharded_ba import (
-                gather_points, landmark_sharded_bundle_adjust,
-                partition_landmarks)
-            n_dev = axis_size(self.mesh, self.mesh_axis)
-            part = partition_landmarks(
-                prob, pcap, n_dev,
-                min_pts_per_shard=-(-pcap // n_dev),
-                min_obs_per_shard=-(-mcap // n_dev))
-            R1, t1, _, cost = landmark_sharded_bundle_adjust(
-                self._tensor(Rp), self._tensor(tp), gather_points(part, Xp),
-                part, self.mesh, iters=iters, axis=self.mesh_axis,
-                fixed_cam_mask=self._tensor(fixed))
-        else:
-            R1, t1, _, cost = bundle_adjust(
-                self._tensor(Rp), self._tensor(tp), self._tensor(Xp), prob,
-                n_cams=ccap, n_pts=pcap, iters=iters,
-                fixed_cam_mask=self._tensor(fixed))
-        R1 = to_numpy(R1)
-        t1 = to_numpy(t1)
-        for o, k in enumerate(range(lo, len(kfs))):
-            kfs[k] = kfs[k]._replace(R=R1[o], t=t1[o])
-        return float(cost)
+        with tracing.span("local_ba.pad"):
+            C = Rs.shape[0]
+            ccap = max(window, C)
+            Pn = X0.shape[0]
+            pcap = min(_bucket(Pn), max(max_pts, Pn))
+            M = prob.cam.shape[0]
+            mcap = _bucket(M)
+            Rp = np.tile(np.eye(3, dtype=np.float32), (ccap, 1, 1))
+            tp = np.zeros((ccap, 3), np.float32)
+            Rp[:C] = to_numpy(Rs)
+            tp[:C] = to_numpy(ts)
+            Xp = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32), (pcap, 1))
+            Xp[:Pn] = to_numpy(X0)
+            prob = BAProblem(
+                cam=self._tensor(np.pad(to_numpy(prob.cam), (0, mcap - M))),
+                pt=self._tensor(np.pad(to_numpy(prob.pt), (0, mcap - M))),
+                uv=self._tensor(np.pad(to_numpy(prob.uv),
+                                       ((0, mcap - M), (0, 0)))),
+                w=self._tensor(np.pad(to_numpy(prob.w), (0, mcap - M))))
+            fixed = np.zeros(ccap, bool)
+            fixed[0] = True
+            fixed[C:] = True
+            Rp, tp, fixed = (self._tensor(Rp), self._tensor(tp),
+                             self._tensor(fixed))
+        with tracing.span("local_ba.solve"):
+            if self.mesh is not None:
+                from ..parallel.mesh import axis_size
+                from ..parallel.sharded_ba import (
+                    gather_points, landmark_sharded_bundle_adjust,
+                    partition_landmarks)
+                n_dev = axis_size(self.mesh, self.mesh_axis)
+                part = partition_landmarks(
+                    prob, pcap, n_dev,
+                    min_pts_per_shard=-(-pcap // n_dev),
+                    min_obs_per_shard=-(-mcap // n_dev))
+                R1, t1, _, cost = landmark_sharded_bundle_adjust(
+                    Rp, tp, gather_points(part, Xp), part, self.mesh,
+                    iters=iters, axis=self.mesh_axis, fixed_cam_mask=fixed)
+            else:
+                R1, t1, _, cost = bundle_adjust(
+                    Rp, tp, self._tensor(Xp), prob, n_cams=ccap,
+                    n_pts=pcap, iters=iters, fixed_cam_mask=fixed)
+        with tracing.span("local_ba.writeback"):
+            R1 = to_numpy(R1)
+            t1 = to_numpy(t1)
+            for o, k in enumerate(range(lo, len(kfs))):
+                kfs[k] = kfs[k]._replace(R=R1[o], t=t1[o])
+            cost = float(to_numpy(cost))
+        return cost
 
     @property
     def last_overflow(self) -> bool:
@@ -476,7 +471,7 @@ class SlamSystem:
         """A feature field as stored: words as uint32, as the JAX package
         stores them."""
         v = getattr(feats, f)
-        return words_to_numpy(v) if f == "words" else to_numpy(v)
+        return to_numpy(v).view(np.uint32) if f == "words" else to_numpy(v)
 
     def save(self, path: str):
         """Full map checkpoint, in the JAX package's format: keyframe poses,

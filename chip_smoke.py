@@ -998,7 +998,7 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     section.  Fails unless every pose is finite, a loop edge was accepted,
     PGO ran and local BA gave a finite cost, and K1, K2 and K4 launched on
     every tracked frame."""
-    from collections import defaultdict
+    from akaze_tpu_torch import tracing
     from akaze_tpu_torch.io import ate_rmse
 
     warm = tum_system(dev)                 # cuSOLVER/cuBLAS set-up, kernels
@@ -1008,9 +1008,10 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
 
     s = tum_system(dev)
     log = instrument(s)
-    s.prof = s.vo.prof = defaultdict(float)
     for fn in counters().values():
         fn.launches = 0
+    tracing.enable()
+    tracing.reset()
     rows = []
     for k, f in enumerate(frames):
         before = {n: fn.launches for n, fn in counters().items()}
@@ -1024,6 +1025,8 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
         delta = {n: fn.launches - before[n] for n, fn in counters().items()}
         rows.append((start.elapsed_time(end), len(s.vo.keyframes) > n_kf,
                      delta))
+    tracing.disable()
+    sections = tracing.summary()["spans"]
     launches = {n: fn.launches for n, fn in counters().items()}
     print(f"[slam] {len(frames)} frames of {SLAM_H}x{SLAM_W}, "
           f"{len(s.vo.keyframes)} keyframes, launches {launches}")
@@ -1042,7 +1045,8 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
         pgo=pgo, ba=ba, tracked_ms=float(np.median(tracked)),
         keyframe_ms=float(np.median(kframes)), n_tracked=len(tracked),
         n_keyframe_frames=len(kframes), ate_px_units=ate,
-        prof={k: v / len(frames) * 1e3 for k, v in sorted(s.prof.items())},
+        prof={k: v["total_ns"] / len(frames) / 1e6
+              for k, v in sorted(sections.items())},
         total_s=sum(r[0] for r in rows) / 1e3)
     print(f"[slam] keyframes on the way out {kf_out}; loop edges "
           f"{res['loops']}; PGO costs {[round(c, 6) for c in pgo]}; local "
@@ -1051,9 +1055,9 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
           f"{res['tracked_ms']:.3f} ms ({len(tracked)} frames), keyframe "
           f"frames {res['keyframe_ms']:.3f} ms ({len(kframes)} frames); "
           f"whole route {res['total_s']:.3f} s")
-    print("[slam] host profile, ms per frame by section (vo.fetch absorbs "
-          "device time): " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                       res["prof"].items()))
+    print("[slam] host profile (tracing spans, children included), ms per "
+          "frame by section (vo.fetch absorbs device time): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["prof"].items()))
     print(f"[slam] keyframe ATE after similarity alignment to the true "
           f"offsets (pixels; a plane under translation, not gated): "
           f"{ate:.4f}")
@@ -2680,22 +2684,27 @@ def phase_program_solvers(torch, dev):
 
 def timed_route(torch, dev, frames, mesh=None):
     """The TUM route on a new system (on ``mesh`` when given): (system,
-    tracked frame ms, keyframe frame ms, PGO ms per call, BA ms per call),
-    between CUDA events."""
-    from collections import defaultdict
+    tracked frame ms, keyframe frame ms, PGO ms per call, BA ms per call):
+    frames between CUDA events, PGO and BA calls by the host spans
+    ``slam.pgo`` and ``slam.local_ba`` of ``tracing``."""
+    from akaze_tpu_torch import tracing
     s = tum_system(dev, mesh)
-    log = instrument(s)
-    s.prof = defaultdict(float)
     tracked, keyf = [], []
+    tracing.enable()
+    tracing.reset()
     for k, f in enumerate(frames):
         n_kf = len(s.vo.keyframes)
         t = cuda_times(torch, lambda: s.process(f), reps=1, warmup=0)[0]
         if k:
             (keyf if len(s.vo.keyframes) > n_kf else tracked).append(t)
-    n_pgo = sum(n == "optimize" for n, _ in log)
-    n_ba = sum(n == "local_bundle_adjust" for n, _ in log)
-    return (s, tracked, keyf, s.prof["pgo"] / max(n_pgo, 1) * 1e3,
-            s.prof["local_ba"] / max(n_ba, 1) * 1e3)
+    tracing.disable()
+    spans = tracing.summary()["spans"]
+
+    def per_call(name):
+        a = spans.get(name)
+        return a["total_ns"] / a["count"] / 1e6 if a else 0.0
+    return (s, tracked, keyf, per_call("slam.pgo"),
+            per_call("slam.local_ba"))
 
 
 def same_map(a, b):

@@ -46,6 +46,7 @@ SIGNATURES = {
                        _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                            _VP],
+    "akaze_extrema_nms": [_VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
 }
 
 

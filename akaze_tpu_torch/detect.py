@@ -341,15 +341,25 @@ def refine_keypoints(kps: Keypoints, octaves: List[OctaveData],
                         y=torch.where(keep, kps.y, new_y))
 
 
-def detect_keypoints(octaves: List[OctaveData],
-                     plan: PipelinePlan) -> Keypoints:
-    """Full detection stage of one image: extrema maps -> NMS -> selection
-    -> refinement.  ``octaves`` hold [S, H, W] planes."""
-    resp, size, layer = build_extrema_maps(octaves, plan)
-    mask = nms(resp, size, layer, plan)
-    kps = select_keypoints(mask, resp, layer, plan.config.max_pts,
+def select_and_refine(mask, resp_full, layer_full,
+                      octaves: List[OctaveData],
+                      plan: PipelinePlan) -> Keypoints:
+    """Keypoints of one image from its NMS survivors and full-resolution
+    maps: selection -> refinement.  ``octaves`` hold [S, H, W] planes."""
+    kps = select_keypoints(mask, resp_full, layer_full, plan.config.max_pts,
                            size_table_for(plan))
     return refine_keypoints(kps, octaves, plan)
+
+
+def detect_keypoints(octaves: List[OctaveData],
+                     plan: PipelinePlan) -> Keypoints:
+    """Full detection stage of one image in plain PyTorch: extrema maps ->
+    NMS -> selection -> refinement.  ``octaves`` hold [S, H, W] planes.
+    The pipeline runs the first two stages of a whole batch in one kernel
+    instead (``ops/detect.py``)."""
+    resp, size, layer = build_extrema_maps(octaves, plan)
+    mask = nms(resp, size, layer, plan)
+    return select_and_refine(mask, resp, layer, octaves, plan)
 
 
 class PaddedPyramid(NamedTuple):

@@ -1,9 +1,10 @@
 """Image-processing ops of the PyTorch AKAZE pipeline.
 
 Each op is a plain function over ``[..., H, W]`` float32 tensors.  The
-three hand-written CUDA kernels live beside their plain versions in
-``sublevel.py`` (K1), ``describe.py`` (K2) and ``hamming.py`` (K4); import
-those modules directly.
+hand-written CUDA kernels live beside their plain versions in
+``sublevel.py`` (K1), ``describe.py`` (K2), ``hamming.py`` (K4) and
+``detect.py`` (detection's extrema and NMS); import those modules
+directly.
 """
 
 from .conv import down_with_smooth, gauss_half_kernel, lowpass, sep_conv2d

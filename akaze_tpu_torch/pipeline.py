@@ -2,8 +2,9 @@
 
 Port of ``akaze_tpu/pipeline.py``.  One code path serves one image and a
 pair: the scale space of all B images runs with the same K1 launches
-(13 per pair at 960x1280), detection runs per image, and one K2 launch
-describes every image's keypoints.  ``Akaze.match`` runs K4.  ``Akaze`` runs
+(13 per pair at 960x1280), one launch finds every image's extrema and NMS
+survivors (``ops/detect.py``), selection and refinement run per image, and
+one K2 launch describes every image's keypoints.  ``Akaze.match`` runs K4.  ``Akaze`` runs
 each of its calls as a compiled program (``programs.py``, the JAX
 package's ``_jit_*`` wrappers, the row-sharded one with a mesh): one CUDA
 graph per static signature, shared between instances.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
@@ -26,8 +27,9 @@ import torch
 from .config import DESCRIPTOR_WORDS, AkazeConfig
 from .descriptor import (WSIZE, orient_describe_multi, plane_dtype,
                          words_to_numpy)
-from .detect import build_padded_pyramid, detect_keypoints
+from .detect import build_padded_pyramid, select_and_refine
 from .match import Matches, match
+from .ops.detect import extrema_nms
 from .plan import PipelinePlan, build_plan
 from . import tracing
 from .programs import jit
@@ -86,9 +88,11 @@ def _keypoints(images, plan: PipelinePlan, fixed: bool, device):
         raise ValueError(f"images must be [B, {plan.height}, {plan.width}],"
                          f" got {tuple(x.shape)}")
     octs, _ = build_scale_space(x, plan)
+    resp, layer, mask = extrema_nms(octs, plan)
     per_image = [[OctaveData(*(p[i] for p in o)) for o in octs]
                  for i in range(x.shape[0])]
-    return [detect_keypoints(o, plan) for o in per_image], per_image
+    return [select_and_refine(mask[i], resp[i], layer[i], o, plan)
+            for i, o in enumerate(per_image)], per_image
 
 
 def detect_batch(images, plan: PipelinePlan, *, fixed: bool = False,

@@ -277,9 +277,10 @@ def mesh_route(mesh, devices, collective_axes) -> str:
 def _launch_counters():
     """The kernels' wrappers, whose ``launches`` programs keep counting."""
     from .ops.describe import describe
+    from .ops.detect import extrema_nms
     from .ops.hamming import hamming_top2
     from .ops.sublevel import octave, sublevel
-    return (sublevel, octave, describe, hamming_top2)
+    return (sublevel, octave, extrema_nms, describe, hamming_top2)
 
 
 def _leaf_key(x):

@@ -15,6 +15,11 @@ any disagreement:
      octaves 0-2 and the octave-resident kernel on octave 3; on all 16
      sublevels L/Lx/Ly/det within 1e-5 of each plane's max, det on the
      whole plane for resident octaves and on the interior for tiled ones;
+  3b. detection's extrema and NMS kernel (``ops/detect.py``) against its
+     plain twin on the card, on the 960x1280 pair's own det stacks
+     (float and fixed) and the 480x640 SLAM frame's: response, layer and
+     survivor mask equal bit for bit; its device time, byte bound, plain
+     time and host time per call;
   4. K2 (orientation + descriptor) against its plain version on the
      keypoints and pyramid of the 960x1280 pair: angles within 1e-3 rad,
      flipped descriptor bits (must be 0); the float flavour on bf16 planes
@@ -560,6 +565,55 @@ def phase_k1(torch, images, plan, tag="K1"):
     return res
 
 
+def phase_detect(torch, images, plan, tag="detect"):
+    """The extrema and NMS kernel against its plain twin on the det stacks
+    of ``images``'s scale space (K1's own outputs): response, layer and
+    survivor mask equal bit for bit.  Returns its device time (profiler),
+    event-bracketed, plain and host times, and its byte bound: each det
+    stack read once, the three maps written once."""
+    from akaze_tpu_torch.ops.detect import extrema_nms, extrema_nms_plain
+    from akaze_tpu_torch.scale_space import build_scale_space
+
+    octs, _ = build_scale_space(images, plan)
+    before = extrema_nms.launches
+    got = extrema_nms(octs, plan)
+    want = extrema_nms_plain(octs, plan)
+    torch.cuda.synchronize()
+    check(extrema_nms.launches == before + 1, f"{tag}: not one launch")
+    for g, w, name in zip(got, want, ("resp", "layer", "mask")):
+        check(g.dtype == w.dtype and g.shape == w.shape, f"{tag}: {name} "
+              f"is {g.dtype} {tuple(g.shape)}, plain {w.dtype} "
+              f"{tuple(w.shape)}")
+        diff = int((g != w).sum())
+        check(diff == 0, f"{tag}: {name} differs from the plain twin at "
+              f"{diff} pixels")
+    survivors = int(want[2].sum())
+    check(survivors > 100, f"{tag}: {survivors} NMS survivors")
+    fn = lambda: extrema_nms(octs, plan)  # noqa: E731
+    for _ in range(3):      # the trace can drop events of short kernels
+        dev_ms, n = kernel_time(profiled(torch, fn, ("extrema_nms_kernel",)),
+                                "extrema_nms_kernel")
+        if n == 1:
+            break
+    check(n == 1, f"{tag}: {n} kernel launches a call in the trace")
+    event = cuda_ms(torch, fn)
+    plain_ms = cuda_ms(torch, lambda: extrema_nms_plain(octs, plan))
+    host = host_us(torch, fn)
+    nbytes = (sum(o.det.numel() * o.det.element_size() for o in octs)
+              + sum(t.numel() * t.element_size() for t in got))
+    bms, by = bound(nbytes, 0)
+    print(f"[{tag}] {images.dtype} B={images.shape[0]} "
+          f"{plan.height}x{plan.width}, {len(plan.octaves)} octaves: resp, "
+          f"layer and mask equal to the plain twin ({survivors} survivors, "
+          f"{int((want[1] >= 0).sum())} layered pixels); device "
+          f"{dev_ms:.4f} ms (profiler); event-bracketed (host + device) "
+          f"{event:.3f} ms vs plain {plain_ms:.3f} ms; host {host:.1f} us "
+          f"per call; bound {bms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} "
+          f"MB)")
+    return dict(max_abs_err=0.0, device_ms=dev_ms, event_ms=event,
+                plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by)
+
+
 def phase_k2(torch, images, plan, fixed=False, tag="K2"):
     """K2 against its plain version on the keypoints and pyramid of
     ``images`` (the pair, or one image: the single-image launch that serves
@@ -712,15 +766,17 @@ def phase_k4(torch, dev):
 
 def counters():
     from akaze_tpu_torch.ops.describe import describe
+    from akaze_tpu_torch.ops.detect import extrema_nms
     from akaze_tpu_torch.ops.hamming import hamming_top2
     from akaze_tpu_torch.ops.sublevel import octave, sublevel
-    return {"tiled": sublevel, "resident": octave, "describe": describe,
-            "hamming": hamming_top2}
+    return {"tiled": sublevel, "resident": octave, "extrema": extrema_nms,
+            "describe": describe, "hamming": hamming_top2}
 
 
 # K1 launches of the 960x1280 plan: octaves 0-2 tiled (4 + 4 + 4), octave 3
-# resident (1)
-MAIN_LAUNCHES = {"tiled": 12, "resident": 1, "describe": 1, "hamming": 1}
+# resident (1); one extrema and NMS launch for the batch
+MAIN_LAUNCHES = {"tiled": 12, "resident": 1, "extrema": 1, "describe": 1,
+                 "hamming": 1}
 
 
 def phase_main(torch, det, a, b, shift, tag="main"):
@@ -780,6 +836,7 @@ def phase_profile(torch, det, a, b, tag="profile"):
         return det.match(fa, fb)
 
     prof = profiled(torch, pair_iteration, ("tiled_kernel", "octave_kernel",
+                                            "extrema_nms_kernel",
                                             "describe_kernel",
                                             "hamming_kernel"))
     total = sum(v[0] for v in prof.values())
@@ -810,9 +867,10 @@ def phase_no_sync(torch, det, a, b, tag="no sync"):
 
 
 def phase_describe_false(torch, det, a, fa, tag="describe=False"):
-    """One image with ``describe=False``: K1 only (13 launches at B = 1),
-    the pair's keypoints of that image, angle 0, zero words; and K1's
-    device time per image (the JAX package's ``fused_sublevel``, B = 1)."""
+    """One image with ``describe=False``: K1 (13 launches at B = 1) and the
+    extrema and NMS kernel only, the pair's keypoints of that image, angle
+    0, zero words; and K1's device time per image (the JAX package's
+    ``fused_sublevel``, B = 1)."""
     at = torch.as_tensor(a, device=det.device)
     for fn in counters().values():
         fn.launches = 0
@@ -996,8 +1054,8 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     frame with the launch counters reset before and read after (and per
     frame), each frame's time between CUDA events, the host profile by
     section.  Fails unless every pose is finite, a loop edge was accepted,
-    PGO ran and local BA gave a finite cost, and K1, K2 and K4 launched on
-    every tracked frame."""
+    PGO ran and local BA gave a finite cost, and K1, the extrema and NMS
+    kernel, K2 and K4 launched on every tracked frame."""
     from akaze_tpu_torch import tracing
     from akaze_tpu_torch.io import ate_rmse
 
@@ -1065,7 +1123,8 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     for k, (_, _, d) in enumerate(rows):
         check(d["tiled"] == per_frame_k1["tiled"]
               and d["resident"] == per_frame_k1["resident"]
-              and d["describe"] == 1, f"slam frame {k}: launches {d}")
+              and d["extrema"] == 1 and d["describe"] == 1,
+              f"slam frame {k}: launches {d}")
         check(k == 0 or d["hamming"] >= 1, f"slam frame {k}: no K4")
     for R, t in s.vo.poses:
         check(np.isfinite(R).all() and np.isfinite(t).all(),
@@ -1273,8 +1332,9 @@ def phase_cli(torch, card, raw_pair, expected):
     (False, True) the counts ``phase_main`` gave on the same pair.  Fails
     on a non-zero exit and unless the counts are equal, matches > 500, the
     backend is cuda and both drawings exist.  Then the CLI's path in this
-    process (``--iters 1``) with the launch counters read: K1 and K2 on
-    both pair iterations, K4 on the first match and the 10 timed ones."""
+    process (``--iters 1``) with the launch counters read: K1, the
+    extrema and NMS kernel and K2 on both pair iterations, K4 on the first
+    match and the 10 timed ones."""
     import contextlib
     import io
     from akaze_tpu_torch import cli
@@ -1282,7 +1342,7 @@ def phase_cli(torch, card, raw_pair, expected):
     here = os.path.dirname(os.path.abspath(__file__))
     want_launches = {"tiled": 2 * MAIN_LAUNCHES["tiled"],
                      "resident": 2 * MAIN_LAUNCHES["resident"],
-                     "describe": 2, "hamming": 11}
+                     "extrema": 2, "describe": 2, "hamming": 11}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         lp = os.path.join(tmp, "left.pgm")
@@ -1445,7 +1505,7 @@ def phase_debug(torch, dev, card, image, plan):
         fn.launches = 0
     got = debug_planes(image, plan, device=dev)
     launches = {k: fn.launches for k, fn in counters().items()}
-    check(launches == dict(MAIN_LAUNCHES, describe=0, hamming=0),
+    check(launches == dict(MAIN_LAUNCHES, extrema=0, describe=0, hamming=0),
           f"[debug] launches {launches}")
     t0 = time.perf_counter()
     want = debug_planes(image, plan, device="cpu")
@@ -1548,10 +1608,12 @@ def no_plain_versions():
     """Fail the run if any kernel's plain version runs inside: a sharded
     path on card tensors must launch the kernels."""
     from akaze_tpu_torch.ops import describe as k2
+    from akaze_tpu_torch.ops import detect as kd
     from akaze_tpu_torch.ops import hamming as k4
     from akaze_tpu_torch.ops import sublevel as k1
     saved = [(m, n, getattr(m, n)) for m, n in (
-        (k1, "sublevel_plain"), (k1, "octave_plain"), (k2, "describe_plain"),
+        (k1, "sublevel_plain"), (k1, "octave_plain"),
+        (kd, "extrema_nms_plain"), (k2, "describe_plain"),
         (k4, "hamming_top2_plain"))]
 
     def guard(name):
@@ -1833,7 +1895,7 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
             launches = launch_counts()
             per = spatial_launches(plan, n)
             want = {"tiled": 2 * n * per["tiled"],
-                    "resident": 2 * n * per["resident"],
+                    "resident": 2 * n * per["resident"], "extrema": 0,
                     "describe": 2 * n, "hamming": 1}
             check(launches == want, f"[{tag}] launches {launches}, the "
                   f"route {spatial_route(plan, n)} predicts {want}")
@@ -2164,7 +2226,8 @@ def phase_mesh_slam(torch, dev, card, frames, single):
             d = {n: fn.launches - before[n] for n, fn in counters().items()}
             check(d["tiled"] == 4 * per["tiled"]
                   and d["resident"] == 4 * per["resident"]
-                  and d["describe"] == 4 and (k == 0 or d["hamming"] >= 1),
+                  and d["extrema"] == 0 and d["describe"] == 4
+                  and (k == 0 or d["hamming"] >= 1),
                   f"[mesh slam] frame {k}: launches {d}")
             ms.append(t)
     launches = {n: fn.launches for n, fn in counters().items()}
@@ -2266,7 +2329,7 @@ def phase_mesh_cli(torch, dev, card, raw_pair, expected):
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     launches = {k: fn.launches for k, fn in counters().items()}
     want = {"tiled": 16 * per["tiled"], "resident": 16 * per["resident"],
-            "describe": 16, "hamming": 11}
+            "extrema": 0, "describe": 16, "hamming": 11}
     counts = (rec["left_pts"], rec["right_pts"], rec["matches"])
     check(counts == expected,
           f"[mesh cli] {rec}; the main path gave {expected}")
@@ -2496,8 +2559,9 @@ def phase_program_profiler(torch, det, a, b):
     def pair_iteration():
         return det.match(*det.detect_and_compute_pair(at, bt))
 
-    needles = ("tiled_kernel", "octave_kernel", "describe_kernel",
-               "hamming_kernel")
+    needles = ("tiled_kernel", "octave_kernel", "extrema_nms_kernel",
+               "describe_kernel", "hamming_kernel")
+
     def launches(prof):
         return {n: sum(v[1] for k, v in prof.items() if n in k)
                 for n in needles}
@@ -3164,19 +3228,21 @@ def launches_by_card():
     first tensor) for the eager calls inside: yields {card: {counter:
     launches}}."""
     from akaze_tpu_torch.ops import describe as k2mod
+    from akaze_tpu_torch.ops import detect as kdmod
     from akaze_tpu_torch.ops import hamming as k4mod
     from akaze_tpu_torch.ops import sublevel as k1mod
     names = counters()
     table = {}
     saved = [(m, n, getattr(m, n)) for m, n in (
         (k1mod, "_launch_sublevel"), (k1mod, "_launch_octave"),
-        (k2mod, "_launch"), (k4mod, "_launch"))]
+        (kdmod, "_launch"), (k2mod, "_launch"), (k4mod, "_launch"))]
 
     def counted(real):
         def launch(*a, **kw):
             before = {k: fn.launches for k, fn in names.items()}
             out = real(*a, **kw)
-            card = table.setdefault(str(a[0].device),
+            first = a[0] if hasattr(a[0], "device") else a[0][0].det
+            card = table.setdefault(str(first.device),
                                     dict.fromkeys(names, 0))
             for k, fn in names.items():
                 card[k] += fn.launches - before[k]
@@ -3400,7 +3466,7 @@ def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
         # the match runs once, on the mesh's first card (the one-card
         # mesh's match key)
         each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
-                "describe": 2}
+                "extrema": 0, "describe": 2}
         total = dict({k: CARDS * v for k, v in each.items()}, hamming=1)
         for fn in counters().values():
             fn.launches = 0
@@ -3494,7 +3560,8 @@ def phase_cards_match(torch, cards, card):
         got = gather_shards(call(), cards[0])
         sync_all(torch, cards)
     expect_by_card(cards, by_card, {"tiled": 0, "resident": 0,
-                                    "describe": 0, "hamming": 1}, tag)
+                                    "extrema": 0, "describe": 0,
+                                    "hamming": 1}, tag)
     equal_outputs(torch, got, want, tag)
     checks = per_card_checks(torch, cards, [], [], None, calls, False, tag)
     t4 = wall_times(torch, call, cards)
@@ -4223,7 +4290,7 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
     x, y = (torch.as_tensor(v, device=cards[0]) for v in (a, b))
     per = spatial_launches(det.plan_for(H, W), CARDS)
     each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
-            "describe": 2, "hamming": 0}
+            "extrema": 0, "describe": 2, "hamming": 0}
     info = {"rank": rank, "cards": [str(c) for c in cards]}
 
     def pair():
@@ -4282,7 +4349,8 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
         calls["match"]()
         sync_all(torch, cards)
     expect_by_card(cards, m_cards, {"tiled": 0, "resident": 0,
-                                    "describe": 0, "hamming": 1}, tag)
+                                    "extrema": 0, "describe": 0,
+                                    "hamming": 1}, tag)
     info["match_checks"] = per_card_checks(torch, cards, [], [], None, mk4,
                                            False, tag)
     outs = {}
@@ -4641,6 +4709,7 @@ def main() -> int:
           "the 960x1280 plan must have 16 sublevels")
     images = torch.stack([torch.as_tensor(x, device=dev) for x in (a, b)])
     k1 = phase_k1(torch, images, plan)
+    kd = phase_detect(torch, images, plan)
     k2 = phase_k2(torch, images, plan)
     k4 = phase_k4(torch, dev)
     launches, k4_main, fa_main, _, m_main = phase_main(torch, det, a, b,
@@ -4675,6 +4744,7 @@ def main() -> int:
     images_fx = torch.stack([torch.as_tensor(x, device=dev).int()
                              for x in (a8, b8)])
     k1_fx = phase_k1(torch, images_fx, plan_fx, tag="K1 fixed")
+    kd_fx = phase_detect(torch, images_fx, plan_fx, tag="detect fixed")
     k2_fx = phase_k2(torch, images_fx, plan_fx, fixed=True, tag="K2 fixed")
     launches_fx, *_ = phase_main(torch, exact, a8, b8, shift,
                                  tag="main fixed exact")
@@ -4710,6 +4780,7 @@ def main() -> int:
     check(per_frame_k1["tiled"] > 0 and per_frame_k1["resident"] > 0,
           f"480x640 plan: K1 launches {per_frame_k1}")
     k1_slam = phase_k1(torch, img1, plan1, tag="K1 slam")
+    kd_slam = phase_detect(torch, img1, plan1, tag="detect slam")
     k3 = phase_k2(torch, img1, plan1, tag="K3 (K2 single image)")
     slam = phase_slam(torch, dev, frames, offsets, per_frame_k1)
     prof_slam = phase_slam_profile(torch, dev, frames)
@@ -4793,6 +4864,16 @@ def main() -> int:
              k2_fx, launches_fx["describe"])):
         ms, _ = kernel_time(p, needle)
         rows.append((name, k2_src, k2_rep, n, ms, r, r["event_ms"]))
+    kd_src = "akaze_tpu_torch/csrc/detect.cu"
+    kd_rep = "none (XLA fuses akaze_tpu/detect.py build_extrema_maps, nms)"
+    for name, needle, p, r, n in (
+            ("extrema_nms_kernel", "extrema_nms_kernel<float>", prof, kd,
+             launches["extrema"]),
+            ("extrema_nms_kernel_fixed", "extrema_nms_kernel<int>", prof_fx,
+             kd_fx, launches_fx["extrema"])):
+        ms, nl = kernel_time(p, needle)
+        check(nl == n, f"{name}: {nl} launches in the trace, {n} counted")
+        rows.append((name, kd_src, kd_rep, n, ms, r, r["event_ms"]))
     ms, _ = kernel_time(prof, "hamming_kernel")
     k4_src = "akaze_tpu_torch/csrc/hamming.cu"
     k4_rep = "akaze_tpu/ops/pallas_match.py:103"
@@ -4808,12 +4889,15 @@ def main() -> int:
              "akaze_tpu/ops/pallas_sublevel.py:346", k1_slam["resident"]),
             ("describe_kernel_single", "describe_kernel<__nv_bfloat16",
              k2_src, "akaze_tpu/ops/pallas_describe.py:579", k3),
+            ("extrema_nms_kernel_slam", "extrema_nms_kernel<float>", kd_src,
+             kd_rep, kd_slam),
             ("hamming_kernel_slam", "hamming_kernel", k4_src, k4_rep,
              k4_slam)):
         ms, per_frame = kernel_time(prof_slam, needle)
         counter = {"tiled_kernel_slam": "tiled",
                    "octave_kernel_slam": "resident",
                    "describe_kernel_single": "describe",
+                   "extrema_nms_kernel_slam": "extrema",
                    "hamming_kernel_slam": "hamming"}[name]
         rows.append((name, src, rep, slam["launches"][counter], ms, r,
                      r["event_ms"], ms / max(per_frame, 1e-9)))

@@ -32,8 +32,9 @@ from .sharded_pgo import pad_edges, sharded_optimize_pose_graph
 from .distributed import (CHIP_AXIS, HIER_AXES, HOST_AXIS, hier_psum,
                           initialize_distributed, make_host_chip_mesh,
                           process_local_batch)
-from .spatial import (spatial_detect_and_compute, spatial_launches,
-                      spatial_route, spatial_scale_space, spatial_supported)
+from .spatial import (spatial_detect_and_compute, spatial_exchange_bytes,
+                      spatial_launches, spatial_route, spatial_scale_space,
+                      spatial_supported)
 from .dryrun import dryrun_multichip
 
 __all__ = ["Mesh", "make_mesh", "normalize_axes", "axis_size",
@@ -48,4 +49,4 @@ __all__ = ["Mesh", "make_mesh", "normalize_axes", "axis_size",
            "process_local_batch", "HOST_AXIS", "CHIP_AXIS", "HIER_AXES",
            "spatial_scale_space", "spatial_supported",
            "spatial_detect_and_compute", "spatial_route", "spatial_launches",
-           "dryrun_multichip"]
+           "spatial_exchange_bytes", "dryrun_multichip"]

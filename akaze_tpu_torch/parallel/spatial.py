@@ -61,10 +61,12 @@ order, and compacted to the valid prefix the matcher expects.
 from __future__ import annotations
 
 from functools import lru_cache
+from math import prod
 from typing import List, Tuple
 
 import torch
 
+from ..config import DESCRIPTOR_WORDS
 from ..descriptor import WSIZE, orient_describe_multi, plane_dtype
 from ..detect import (FMIN_VAL, IMIN_VAL, Keypoints, build_extrema_maps,
                       build_padded_pyramid, nms, refine_keypoints,
@@ -177,6 +179,72 @@ def spatial_launches(plan: PipelinePlan, n_dev: int) -> dict:
                                                    sp.smooth_radius))
                                 for sp in octave_specs(op, base))
     return out
+
+
+def spatial_exchange_bytes(plan: PipelinePlan, n_dev: int,
+                           describe: bool = True,
+                           kernels: bool = True) -> int:
+    """Bytes that one image's ``spatial_detect_and_compute`` moves from
+    shard to shard, from (plan, number of shards) alone: the global
+    image's row split (``collectives.shard``), every ghost row that a
+    neighbour sends (``extend_rows``: 2 (n - 1) seams of ``r`` rows; the
+    reflect or fill rows at the global edges are each shard's own), each
+    gathered block (``all_gather``: the n - 1 other blocks to every shard,
+    or to the home shard alone for the features), and nothing of the
+    contrast's scalar reductions.  ``kernels``: the card's sublevels (one
+    exchange of each sublevel's whole reach), else the plain version's
+    op-by-op exchanges (the CPU).  Raises where ``spatial_supported``
+    refuses the shape."""
+    ok, why = spatial_supported(plan, n_dev, detect=True, describe=describe)
+    if not ok:
+        raise ValueError(f"spatial sharding unsupported: {why}")
+    n, word = n_dev, 4                    # float32 or int32 planes,
+                                          # on either path
+    seams = 2 * (n - 1)
+
+    def rows(r, *shape):                  # extend_rows of [..., h, w]
+        return seams * r * word * prod(shape)
+
+    def gathered(*shape, home=False):     # all_gather of per-shard blocks
+        return (n - 1) * (1 if home else n) * word * prod(shape)
+
+    h, w = plan.height // n, plan.width
+    total = (n - 1) * h * w * word + rows(2, w) + rows(1, w)
+    prev = (h, w)
+    for oi, (op, whole) in enumerate(zip(plan.octaves,
+                                         spatial_route(plan, n))):
+        h_o, w_o = op.height // n, op.width
+        if whole:
+            total += gathered(*prev)
+        else:
+            if oi:
+                total += rows(4, prev[1])         # decimation's 4 source rows
+            for s_i, sp in enumerate(octave_specs(op, _base(plan, oi))):
+                smooth_given = oi > 0 and s_i == 0
+                if kernels:
+                    r = halo_for(sp.step, len(sp.taus), sp.smooth_radius)
+                    total += rows(r, w_o) * (2 if smooth_given else 1)
+                    continue
+                if not smooth_given:
+                    total += rows(sp.smooth_radius, w_o)
+                if sp.taus:                       # flow, then the FED chain
+                    total += rows(1, w_o) + 2 * rows(len(sp.taus), w_o)
+                total += 3 * rows(sp.step, w_o)   # smooth, then lx and ly
+        prev = (h_o, w_o)
+    scales = [len(op.scales) for op in plan.octaves]
+    for op, s in zip(plan.octaves, scales):       # extrema's halo-1 det
+        total += rows(1, s, op.width)
+    total += rows(plan.max_nms_radius, w)         # NMS's response rows
+    if describe:
+        hd = WSIZE // 2
+        for op, s in zip(plan.octaves, scales):   # L, lx, ly
+            h_o = op.height // n
+            total += 3 * (gathered(s, h_o, op.width) if h_o - 1 < hd
+                          else rows(hd, s, op.width))
+    m = plan.config.max_pts                       # the features to home
+    total += gathered(m * (6 + DESCRIPTOR_WORDS), home=True)
+    total += (n - 1) * (m + 1)                    # valid and overflow, bool
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +580,6 @@ def spatial_detect_and_compute(image, plan: PipelinePlan, mesh: Mesh,
     if describe:
         described = _describe_shards(octs, kps, row0, plan, sh, fixed)
     else:
-        from ..config import DESCRIPTOR_WORDS
         described = [(torch.zeros_like(k.x),
                       torch.zeros((k.x.shape[0], DESCRIPTOR_WORDS),
                                   dtype=torch.int32, device=k.x.device))

@@ -208,7 +208,11 @@ class Akaze:
 
     Each call is one request of ``tracing``: ``akaze.upload`` (the images
     to ``device``: a host array's copy and cast) and ``akaze.detect`` (the
-    program's call), or ``akaze.match``."""
+    program's call; with a mesh one per image), or ``akaze.match``.  An
+    image through the spatial tier opens ``akaze.spatial`` inside
+    ``akaze.detect`` and counts ``spatial.images`` and its
+    ``spatial.exchange_bytes`` (``parallel.spatial_exchange_bytes``,
+    cached per shape); a fallback counts ``spatial.fallbacks``."""
 
     def __init__(self, config: Optional[AkazeConfig] = None,
                  fixed: bool = False, device=None, mesh=None,
@@ -231,7 +235,7 @@ class Akaze:
         self.spatial_fallback = spatial_fallback
         self.spatial_fallbacks = 0
         self._plans = {}
-        self._spatial = {}
+        self._spatial = {}      # shape: (sharded, bytes between shards)
 
     def plan_for(self, height: int, width: int) -> PipelinePlan:
         key = (height, width)
@@ -248,16 +252,20 @@ class Akaze:
             return False
         key = (height, width, describe)
         if key not in self._spatial:
-            from .parallel.spatial import spatial_supported
+            from .parallel.spatial import (spatial_exchange_bytes,
+                                           spatial_supported)
             n = self.mesh.shape["data"]
-            ok, why = spatial_supported(self.plan_for(height, width), n,
-                                        detect=True, describe=describe)
+            plan = self.plan_for(height, width)
+            ok, why = spatial_supported(plan, n, detect=True,
+                                        describe=describe)
             if not ok and not self.spatial_fallback:
                 raise ValueError(f"spatial sharding unsupported for "
                                  f"{height}x{width} over {n} devices: "
                                  f"{why}")
-            self._spatial[key] = ok
-        return self._spatial[key]
+            self._spatial[key] = (ok, spatial_exchange_bytes(
+                plan, n, describe, kernels=self.device.type == "cuda")
+                if ok else 0)
+        return self._spatial[key][0]
 
     def detect_and_compute(self, image, describe: bool = True) -> Features:
         """image: [H, W] (numpy or tensor), float in [0, 1], or raw 0..255
@@ -266,15 +274,26 @@ class Akaze:
         with tracing.request():
             with tracing.span("akaze.upload"):
                 x = _as_images(image, self.device, self.fixed)
-            plan = self.plan_for(*x.shape)
-            with tracing.span("akaze.detect"):
-                if self.sharded(*x.shape, describe):
+            return self._detect(x, describe)
+
+    def _detect(self, x: torch.Tensor, describe: bool = True) -> Features:
+        """The program's call on an image already on ``device``: the
+        spatial tier with a mesh where it shards the shape, else the
+        single-device program."""
+        plan = self.plan_for(*x.shape)
+        with tracing.span("akaze.detect"):
+            if self.sharded(*x.shape, describe):
+                if tracing.enabled():
+                    tracing.count("spatial.images")
+                    tracing.count("spatial.exchange_bytes", self._spatial[
+                        (*x.shape, describe)][1])
+                with tracing.span("akaze.spatial"):
                     return _jit_spatial_detect_and_compute(
                         x, plan, self.mesh, self.fixed, describe)
-                if self.mesh is not None:
-                    self.spatial_fallbacks += 1
-                return _jit_detect_and_compute(x, plan, self.fixed,
-                                               describe)
+            if self.mesh is not None:
+                self.spatial_fallbacks += 1
+                tracing.count("spatial.fallbacks")
+            return _jit_detect_and_compute(x, plan, self.fixed, describe)
 
     def detect_and_compute_pair(self, image_a, image_b):
         """Both images of a pair in one batch.  Returns (fa, fb).  With a
@@ -288,7 +307,7 @@ class Akaze:
             if a.shape != b.shape:
                 raise ValueError("pair batching needs equal shapes")
             if self.mesh is not None:
-                return self.detect_and_compute(a), self.detect_and_compute(b)
+                return self._detect(a), self._detect(b)
             with tracing.span("akaze.detect"):
                 return _jit_detect_and_compute_pair(
                     a, b, self.plan_for(*a.shape), self.fixed)

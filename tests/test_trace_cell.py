@@ -1,8 +1,9 @@
 """``tools/trace_cell.py``: a small ``--trace 1`` run of each benchmark
-cell on the CPU (``cardbench/tests/small.py``'s sizes) with the program's
-tracer on reports each program metric of the cell, keeps no program label
-on the device's timeline, and records nothing once the traced stretch has
-ended (the release, the SLAM check's own pass)."""
+cell on the CPU (``cardbench/tests/small.py``'s sizes; a four-card cell
+on four CPU shards) with the program's tracer on reports each program
+metric of the cell, keeps no program label on the device's timeline, and
+records nothing once the traced stretch has ended (the release, the SLAM
+check's own pass)."""
 
 import importlib.util
 import time
@@ -27,7 +28,8 @@ def load_tool():
 
 @pytest.mark.parametrize("name", ["pair.vo.960x1280",
                                   "sfm.exhaustive.960x1280",
-                                  "slam.tum.480x640"])
+                                  "slam.tum.480x640",
+                                  "pair.aerial.3648x5472.4cards"])
 def test_a_traced_cell_reports_the_program_metrics(name):
     torch.set_num_threads(1)
     tool = load_tool()
@@ -63,3 +65,11 @@ def test_a_traced_cell_reports_the_program_metrics(name):
                 "slam.pgo"} <= set(spans)
     else:
         assert {"akaze.upload", "akaze.detect", "akaze.match"} <= set(spans)
+    if cell["chips"] > 1:
+        # the pair's images through the spatial tier, four CPU shards
+        counters = out["summary"]["counters"]
+        assert counters["spatial.images"] == 2 * spans["akaze.upload"][
+            "count"] == spans["akaze.spatial"]["count"]
+        assert out["metrics"]["spatial.exchange_bytes_per_pair"][
+            "value"] > 0
+        assert "spatial.fallbacks" not in counters

@@ -56,16 +56,26 @@ def _per_frame(summary):
             if frames else None)
 
 
+def _exchange_per_pair(summary):
+    """Bytes between shards per pair of images through the spatial tier."""
+    counters = summary["counters"]
+    images = counters.get("spatial.images", 0)
+    return (2 * counters.get("spatial.exchange_bytes", 0) / images
+            if images else None)
+
+
 GC = "python.gc."          # labels of the collector's passes
 
 PAIRS = ("pair.vo.960x1280", "sfm.exhaustive.960x1280")
+AERIAL = ("pair.aerial.3648x5472.4cards",)
 SLAM = ("slam.tum.480x640",)
 # name: (unit, the cells whose path records it, its reading of a summary)
 PROGRAM_METRICS = {
-    "pipeline.upload_ms": ("ms", PAIRS[:1],
+    "pipeline.upload_ms": ("ms", PAIRS[:1] + AERIAL,
                            lambda s: _mean(s, "akaze.upload", 1e6)),
-    "programs.replay_host_us": ("us", PAIRS,
+    "programs.replay_host_us": ("us", PAIRS + AERIAL,
                                 lambda s: _mean(s, "program.replay", 1e3)),
+    "spatial.exchange_bytes_per_pair": ("bytes", AERIAL, _exchange_per_pair),
     "vo.two_view_ms": ("ms", SLAM, lambda s: _mean(s, "vo.two_view", 1e6)),
     "slam.local_ba_ms": ("ms", SLAM,
                          lambda s: _mean(s, "slam.local_ba", 1e6)),

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # argument types of every C entry point (csrc/*.cu, extern "C")
 SIGNATURES = {
     "akaze_sublevel": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -47,6 +48,9 @@ SIGNATURES = {
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                            _VP],
     "akaze_extrema_nms": [_VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    "akaze_pgo_scratch": [_I, _I, _VP],
+    "akaze_pgo_solve": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                        _I, _I, _I, _F, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
 }
 
 
@@ -143,9 +147,11 @@ def check(err: int, name: str) -> None:
         raise KernelError(f"{name}: CUDA error {err}: {text}")
 
 
-def check_tensor(name: str, t, dtype, shape, device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` -- what a kernel's raw pointer arithmetic assumes."""
+def check_tensor(name: str, t, dtype, shape, device,
+                 contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``device``,
+    and contiguous (what a kernel's raw pointer arithmetic assumes) unless
+    ``contiguous`` is false."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -153,7 +159,7 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

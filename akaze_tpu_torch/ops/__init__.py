@@ -2,9 +2,9 @@
 
 Each op is a plain function over ``[..., H, W]`` float32 tensors.  The
 hand-written CUDA kernels live beside their plain versions in
-``sublevel.py`` (K1), ``describe.py`` (K2), ``hamming.py`` (K4) and
-``detect.py`` (detection's extrema and NMS); import those modules
-directly.
+``sublevel.py`` (K1), ``describe.py`` (K2), ``hamming.py`` (K4),
+``detect.py`` (detection's extrema and NMS) and ``pgo.py`` (SLAM's
+pose-graph solve); import those modules directly.
 """
 
 from .conv import down_with_smooth, gauss_half_kernel, lowpass, sep_conv2d

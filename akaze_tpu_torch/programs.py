@@ -279,8 +279,9 @@ def _launch_counters():
     from .ops.describe import describe
     from .ops.detect import extrema_nms
     from .ops.hamming import hamming_top2
+    from .ops.pgo import pgo_solve
     from .ops.sublevel import octave, sublevel
-    return (sublevel, octave, extrema_nms, describe, hamming_top2)
+    return (sublevel, octave, extrema_nms, describe, hamming_top2, pgo_solve)
 
 
 def _leaf_key(x):

@@ -16,6 +16,8 @@ solved with conjugate gradients.  Pose 0 (or ``fixed_mask``) is held by
 zeroing its update.  The loop (``gauss_newton``) takes the edge list as
 per-shard pieces with a sum and a gather over them, so that
 ``parallel/sharded_pgo.py`` runs it with the edges sharded over a mesh.
+On the card ``optimize_pose_graph`` runs the whole loop as one kernel
+(``ops/pgo.py``), whose plain twin is ``gauss_newton`` with one graph.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..geometry.se3 import se3_compose, se3_exp, se3_inverse, se3_log
+from ..ops.pgo import pgo_solve
 from ..programs import jit
 from .linalg import cg, one_hot, segment_sum
 
@@ -137,8 +140,9 @@ def optimize_pose_graph(R, t, graph: PoseGraph, iters: int = 10,
                         fixed_mask=None, robust: str = "none",
                         robust_delta: float = 2.0):
     """Gauss-Newton PGO, a compiled program (``programs.py``): one CUDA
-    graph per (static arguments, tensor shapes) on the card; ``damping``
-    is traced, an input of the graph.
+    graph per (static arguments, tensor shapes) on the card, whose one
+    node is the ``pgo_solve`` kernel (``ops/pgo.py``; CPU tensors run
+    ``gauss_newton``); ``damping`` is traced, an input of the graph.
 
     Args:
       R, t: initial poses [N, 3, 3], [N, 3].
@@ -155,8 +159,8 @@ def optimize_pose_graph(R, t, graph: PoseGraph, iters: int = 10,
     """
     if fixed_mask is None:          # (an item assignment would copy)
         fixed_mask = torch.arange(R.shape[0], device=R.device) == 0
-    return gauss_newton(R, t, [graph], fixed_mask, iters, cg_iters, damping,
-                        robust, robust_delta, reduce=_only, gather=_only)
+    return pgo_solve(R, t, graph, fixed_mask, iters, cg_iters, damping,
+                     robust, robust_delta)
 
 
 def _only(xs):

@@ -768,15 +768,16 @@ def counters():
     from akaze_tpu_torch.ops.describe import describe
     from akaze_tpu_torch.ops.detect import extrema_nms
     from akaze_tpu_torch.ops.hamming import hamming_top2
+    from akaze_tpu_torch.ops.pgo import pgo_solve
     from akaze_tpu_torch.ops.sublevel import octave, sublevel
     return {"tiled": sublevel, "resident": octave, "extrema": extrema_nms,
-            "describe": describe, "hamming": hamming_top2}
+            "describe": describe, "hamming": hamming_top2, "pgo": pgo_solve}
 
 
 # K1 launches of the 960x1280 plan: octaves 0-2 tiled (4 + 4 + 4), octave 3
-# resident (1); one extrema and NMS launch for the batch
+# resident (1); one extrema and NMS launch for the batch; no PGO
 MAIN_LAUNCHES = {"tiled": 12, "resident": 1, "extrema": 1, "describe": 1,
-                 "hamming": 1}
+                 "hamming": 1, "pgo": 0}
 
 
 def phase_main(torch, det, a, b, shift, tag="main"):
@@ -1054,10 +1055,13 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     frame with the launch counters reset before and read after (and per
     frame), each frame's time between CUDA events, the host profile by
     section.  Fails unless every pose is finite, a loop edge was accepted,
-    PGO ran and local BA gave a finite cost, and K1, the extrema and NMS
-    kernel, K2 and K4 launched on every tracked frame."""
+    PGO ran and local BA gave a finite cost, K1, the extrema and NMS
+    kernel, K2 and K4 launched on every tracked frame, and PGO's kernel
+    once a solve and never elsewhere.  Returns, among its results, the
+    route's pose graphs as ``optimize_pose_graph`` received them."""
     from akaze_tpu_torch import tracing
     from akaze_tpu_torch.io import ate_rmse
+    from akaze_tpu_torch.slam import system as slam_system
 
     warm = tum_system(dev)                 # cuSOLVER/cuBLAS set-up, kernels
     for f in frames[:3]:
@@ -1071,18 +1075,21 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     tracing.enable()
     tracing.reset()
     rows = []
-    for k, f in enumerate(frames):
-        before = {n: fn.launches for n, fn in counters().items()}
-        n_kf = len(s.vo.keyframes)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        s.process(f)
-        end.record()
-        end.synchronize()
-        delta = {n: fn.launches - before[n] for n, fn in counters().items()}
-        rows.append((start.elapsed_time(end), len(s.vo.keyframes) > n_kf,
-                     delta))
+    with recording(slam_system, "optimize_pose_graph") as graphs:
+        for k, f in enumerate(frames):
+            before = {n: fn.launches for n, fn in counters().items()}
+            n_kf, solves = len(s.vo.keyframes), len(graphs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            s.process(f)
+            end.record()
+            end.synchronize()
+            delta = {n: fn.launches - before[n]
+                     for n, fn in counters().items()}
+            rows.append((start.elapsed_time(end),
+                         len(s.vo.keyframes) > n_kf, delta,
+                         len(graphs) - solves))
     tracing.disable()
     sections = tracing.summary()["spans"]
     launches = {n: fn.launches for n, fn in counters().items()}
@@ -1093,13 +1100,14 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
     loops = loop_edges(s)
     pgo = [c for n, c in log if n == "optimize"]
     ba = [c for n, c in log if n == "local_bundle_adjust"]
-    tracked = [ms for k, (ms, kf, _) in enumerate(rows) if k and not kf]
-    kframes = [ms for k, (ms, kf, _) in enumerate(rows) if k and kf]
+    tracked = [ms for k, (ms, kf, _, _) in enumerate(rows) if k and not kf]
+    kframes = [ms for k, (ms, kf, _, _) in enumerate(rows) if k and kf]
     idx = [kf.index for kf in s.vo.keyframes]
     gt = np.stack([offsets[idx, 1], offsets[idx, 0], np.zeros(len(idx))], 1)
     ate = ate_rmse(s.keyframe_trajectory(), gt)
     res = dict(
         system=s, launches=launches, loops=[e[:2] for e in loops],
+        graphs=graphs,
         pgo=pgo, ba=ba, tracked_ms=float(np.median(tracked)),
         keyframe_ms=float(np.median(kframes)), n_tracked=len(tracked),
         n_keyframe_frames=len(kframes), ate_px_units=ate,
@@ -1120,12 +1128,15 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
           f"offsets (pixels; a plane under translation, not gated): "
           f"{ate:.4f}")
     # the checks, after the statistics are printed
-    for k, (_, _, d) in enumerate(rows):
+    for k, (_, _, d, solves) in enumerate(rows):
         check(d["tiled"] == per_frame_k1["tiled"]
               and d["resident"] == per_frame_k1["resident"]
-              and d["extrema"] == 1 and d["describe"] == 1,
-              f"slam frame {k}: launches {d}")
+              and d["extrema"] == 1 and d["describe"] == 1
+              and d["pgo"] == solves, f"slam frame {k}: launches {d}, "
+              f"{solves} PGO solves")
         check(k == 0 or d["hamming"] >= 1, f"slam frame {k}: no K4")
+    check(len(graphs) == len([c for c in pgo if c is not None]),
+          f"slam: {len(graphs)} PGO solves, optimize costs {pgo}")
     for R, t in s.vo.poses:
         check(np.isfinite(R).all() and np.isfinite(t).all(),
               "slam: a non-finite pose")
@@ -1142,6 +1153,114 @@ def phase_slam(torch, dev, frames, offsets, per_frame_k1):
           f"slam: local BA costs {ba}")
     check(bool(tracked) and bool(kframes), "slam: no tracked-only frame")
     return res
+
+
+def pgo_stress_graph(torch, dev, n=256, e=1024):
+    """A pose graph of ``n`` poses and ``e`` edges (the capacity of a long
+    TUM sequence's keyframes and loops): a drifted walk, its odometry chain
+    and loops between random pairs, one in eight of them an outlier."""
+    from akaze_tpu_torch.geometry import se3_compose, se3_exp, se3_inverse
+    from akaze_tpu_torch.slam.posegraph import PoseGraph
+    rng = np.random.default_rng(SEED + 43)
+    step = torch.from_numpy(rng.standard_normal((n - 1, 6)).astype(
+        np.float32) * np.float32([0.5] * 3 + [0.15] * 3))
+
+    def walk(steps):
+        R, t = [torch.eye(3)], [torch.zeros(3)]
+        for x in steps:
+            dR, dt = se3_exp(x[None])
+            Rn, tn = se3_compose(R[-1], t[-1], dR[0], dt[0])
+            R.append(Rn)
+            t.append(tn)
+        return torch.stack(R), torch.stack(t)
+
+    R_true, t_true = walk(step)
+    ei, ej = list(range(n - 1)), list(range(1, n))
+    while len(ei) < e:
+        a, b = sorted(rng.integers(0, n, 2).tolist())
+        if b - a > 1:
+            ei.append(a)
+            ej.append(b)
+    Rij, tij = se3_compose(*se3_inverse(R_true[ei], t_true[ei]),
+                           R_true[ej], t_true[ej])
+    noise = rng.standard_normal((e, 6)).astype(np.float32) * 0.01
+    noise[n::8] *= 50.0
+    Rij, tij = se3_compose(Rij, tij, *se3_exp(torch.from_numpy(noise)))
+    R0, t0 = walk(step + torch.from_numpy(rng.standard_normal(
+        (n - 1, 6)).astype(np.float32) * 0.03))
+    g = PoseGraph(torch.tensor(ei, dtype=torch.int32),
+                  torch.tensor(ej, dtype=torch.int32), Rij, tij,
+                  torch.ones(e))
+    return (R0.to(dev), t0.to(dev), PoseGraph(*(a.to(dev) for a in g)),
+            torch.arange(n, device=dev) == 0)
+
+
+def phase_pgo(torch, dev, graphs):
+    """PGO's kernel (``ops/pgo.py``) against its plain twin on the card:
+    on the SLAM route's graphs as ``optimize_pose_graph`` received them
+    and on a 256-pose, 1024-edge graph, under the route's loss; poses and
+    cost equal bit for bit, two launches equal, one launch a call.  Times
+    the kernel (profiler device time, event-bracketed, host time per call)
+    and the plain chain (event-bracketed, its device time and kernels per
+    call).  Returns {"route": ..., "256x1024": ...}, the route's row from
+    its last graph (the largest)."""
+    from akaze_tpu_torch.ops.pgo import pgo_solve, pgo_solve_plain
+    from akaze_tpu_torch.slam import SlamConfig
+    cfg = SlamConfig()
+    cases = []
+    for a, kw in graphs:
+        R, t, g = a
+        cases.append((R, t, g, kw["fixed_mask"], kw.get("iters", 10)))
+    check(bool(cases), "pgo: the route recorded no graph")
+    cases.append((*pgo_stress_graph(torch, dev), 10))
+    out = {}
+    for k, (R, t, g, fixed, iters) in enumerate(cases):
+        n, e = R.shape[0], g.weight.shape[0]
+        damping = torch.full((), 1e-6, device=dev)
+        args = (R, t, g, fixed, iters, 50, damping, cfg.robust,
+                cfg.robust_delta)
+        before = pgo_solve.launches
+        got = pgo_solve(*args)
+        again = pgo_solve(*args)
+        want = pgo_solve_plain(*args)
+        torch.cuda.synchronize()
+        check(pgo_solve.launches == before + 2, f"pgo {n}x{e}: launches "
+              f"{pgo_solve.launches - before} for two calls")
+        for x, y, z, name in zip(got, again, want, ("R", "t", "cost")):
+            check(torch.equal(x, y), f"pgo {n}x{e}: {name} differs between "
+                  "two launches")
+            check(torch.equal(x, z), f"pgo {n}x{e}: {name} differs from the "
+                  f"plain twin at {int((x != z).sum())} entries")
+        fn = lambda: pgo_solve(*args)  # noqa: E731
+        plain = lambda: pgo_solve_plain(*args)  # noqa: E731
+        # the launches are the counter's (above); the trace can drop a
+        # kernel's events, so its time is taken per traced launch
+        dev_ms, nl = kernel_time(profiled(torch, fn, ("pgo_solve_kernel",)),
+                                 "pgo_solve_kernel")
+        dev_ms /= nl
+        plain_kernels = device_kernels(torch, plain, reps=1)
+        plain_dev = sum(v[0] for v in plain_kernels.values())
+        plain_n = sum(v[1] for v in plain_kernels.values())
+        event = cuda_ms(torch, fn)
+        plain_ms = cuda_ms(torch, plain, reps=3)
+        host = host_us(torch, fn)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (R, t, *g, fixed, *got))
+        bms, by = bound(nbytes, 0)
+        name = "256x1024" if k == len(cases) - 1 else "route"
+        print(f"[pgo] {n} poses x {e} edges ({int((g.weight > 0).sum())} "
+              f"active), {cfg.robust}: R, t and cost equal to the plain "
+              f"twin bit for bit, and between two launches; cost "
+              f"{float(got[2]):.6g}; kernel device {dev_ms:.4f} ms "
+              f"(profiler), event-bracketed {event:.3f} ms, host {host:.1f} "
+              f"us per call; plain chain {plain_ms:.3f} ms eager "
+              f"({plain_n:.0f} kernels, {plain_dev:.3f} ms of device time "
+              f"a call); bytes bound {bms * 1e3:.3f} us")
+        out[name] = dict(max_abs_err=0.0, device_ms=dev_ms, event_ms=event,
+                         plain_ms=plain_ms, plain_kernels=plain_n,
+                         plain_device_ms=plain_dev, host_us=host,
+                         bound_ms=bms, bound_by=f"latency ({by} {bms:.4f})")
+    return out
 
 
 def phase_slam_profile(torch, dev, frames):
@@ -1342,7 +1461,7 @@ def phase_cli(torch, card, raw_pair, expected):
     here = os.path.dirname(os.path.abspath(__file__))
     want_launches = {"tiled": 2 * MAIN_LAUNCHES["tiled"],
                      "resident": 2 * MAIN_LAUNCHES["resident"],
-                     "extrema": 2, "describe": 2, "hamming": 11}
+                     "extrema": 2, "describe": 2, "hamming": 11, "pgo": 0}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         lp = os.path.join(tmp, "left.pgm")
@@ -1610,11 +1729,12 @@ def no_plain_versions():
     from akaze_tpu_torch.ops import describe as k2
     from akaze_tpu_torch.ops import detect as kd
     from akaze_tpu_torch.ops import hamming as k4
+    from akaze_tpu_torch.ops import pgo
     from akaze_tpu_torch.ops import sublevel as k1
     saved = [(m, n, getattr(m, n)) for m, n in (
         (k1, "sublevel_plain"), (k1, "octave_plain"),
         (kd, "extrema_nms_plain"), (k2, "describe_plain"),
-        (k4, "hamming_top2_plain"))]
+        (k4, "hamming_top2_plain"), (pgo, "pgo_solve_plain"))]
 
     def guard(name):
         def refuse(*a, **kw):
@@ -1896,7 +2016,7 @@ def phase_mesh_spatial(torch, dev, card, pairs, shards, flavours, size,
             per = spatial_launches(plan, n)
             want = {"tiled": 2 * n * per["tiled"],
                     "resident": 2 * n * per["resident"], "extrema": 0,
-                    "describe": 2 * n, "hamming": 1}
+                    "describe": 2 * n, "hamming": 1, "pgo": 0}
             check(launches == want, f"[{tag}] launches {launches}, the "
                   f"route {spatial_route(plan, n)} predicts {want}")
             check(eager_n == want | {"hamming": 0}, f"[{tag}] the eager "
@@ -2227,7 +2347,7 @@ def phase_mesh_slam(torch, dev, card, frames, single):
             check(d["tiled"] == 4 * per["tiled"]
                   and d["resident"] == 4 * per["resident"]
                   and d["extrema"] == 0 and d["describe"] == 4
-                  and (k == 0 or d["hamming"] >= 1),
+                  and d["pgo"] == 0 and (k == 0 or d["hamming"] >= 1),
                   f"[mesh slam] frame {k}: launches {d}")
             ms.append(t)
     launches = {n: fn.launches for n, fn in counters().items()}
@@ -2329,7 +2449,7 @@ def phase_mesh_cli(torch, dev, card, raw_pair, expected):
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     launches = {k: fn.launches for k, fn in counters().items()}
     want = {"tiled": 16 * per["tiled"], "resident": 16 * per["resident"],
-            "extrema": 0, "describe": 16, "hamming": 11}
+            "extrema": 0, "describe": 16, "hamming": 11, "pgo": 0}
     counts = (rec["left_pts"], rec["right_pts"], rec["matches"])
     check(counts == expected,
           f"[mesh cli] {rec}; the main path gave {expected}")
@@ -3466,7 +3586,7 @@ def phase_cards_spatial(torch, cards, card, pairs, flavours, size, shift,
         # the match runs once, on the mesh's first card (the one-card
         # mesh's match key)
         each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
-                "extrema": 0, "describe": 2}
+                "extrema": 0, "describe": 2, "pgo": 0}
         total = dict({k: CARDS * v for k, v in each.items()}, hamming=1)
         for fn in counters().values():
             fn.launches = 0
@@ -3561,7 +3681,7 @@ def phase_cards_match(torch, cards, card):
         sync_all(torch, cards)
     expect_by_card(cards, by_card, {"tiled": 0, "resident": 0,
                                     "extrema": 0, "describe": 0,
-                                    "hamming": 1}, tag)
+                                    "hamming": 1, "pgo": 0}, tag)
     equal_outputs(torch, got, want, tag)
     checks = per_card_checks(torch, cards, [], [], None, calls, False, tag)
     t4 = wall_times(torch, call, cards)
@@ -4290,7 +4410,7 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
     x, y = (torch.as_tensor(v, device=cards[0]) for v in (a, b))
     per = spatial_launches(det.plan_for(H, W), CARDS)
     each = {"tiled": 2 * per["tiled"], "resident": 2 * per["resident"],
-            "extrema": 0, "describe": 2, "hamming": 0}
+            "extrema": 0, "describe": 2, "hamming": 0, "pgo": 0}
     info = {"rank": rank, "cards": [str(c) for c in cards]}
 
     def pair():
@@ -4350,7 +4470,7 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
         sync_all(torch, cards)
     expect_by_card(cards, m_cards, {"tiled": 0, "resident": 0,
                                     "extrema": 0, "describe": 0,
-                                    "hamming": 1}, tag)
+                                    "hamming": 1, "pgo": 0}, tag)
     info["match_checks"] = per_card_checks(torch, cards, [], [], None, mk4,
                                            False, tag)
     outs = {}
@@ -4783,6 +4903,7 @@ def main() -> int:
     kd_slam = phase_detect(torch, img1, plan1, tag="detect slam")
     k3 = phase_k2(torch, img1, plan1, tag="K3 (K2 single image)")
     slam = phase_slam(torch, dev, frames, offsets, per_frame_k1)
+    pgo = phase_pgo(torch, dev, slam["graphs"])
     prof_slam = phase_slam_profile(torch, dev, frames)
     syncs = phase_slam_repeat(torch, dev, frames, slam["system"])
     fa = det1.detect_and_compute(frames[0])
@@ -4901,6 +5022,15 @@ def main() -> int:
                    "hamming_kernel_slam": "hamming"}[name]
         rows.append((name, src, rep, slam["launches"][counter], ms, r,
                      r["event_ms"], ms / max(per_frame, 1e-9)))
+    # PGO's rows: per call, at the route's largest graph (launches: the
+    # route's solves) and at 256 poses x 1024 edges
+    kp_src = "akaze_tpu_torch/csrc/pgo.cu"
+    kp_rep = "none (XLA compiles akaze_tpu/slam/posegraph.py's loops)"
+    for name, r, n in (("pgo_solve_kernel_slam", pgo["route"],
+                        slam["launches"]["pgo"]),
+                       ("pgo_solve_kernel_256x1024", pgo["256x1024"], 1)):
+        rows.append((name, kp_src, kp_rep, n, r["device_ms"], r,
+                     r["event_ms"], r["device_ms"]))
     # the sharded paths' rows: per pair (spatial, 4 shards), per call
     # (sharded_match, 4 shards), per step of 8 pairs (dp, 4 shards)
     mesh = mesh_rows([("", sp), (f"_{BIG_H}x{BIG_W}", big)], mesh_match, dp,
@@ -4922,13 +5052,18 @@ def main() -> int:
                "library_ms": r.get("library_ms")}
         if name in ("tiled_kernel", "octave_kernel"):
             row["b1_device_ms_per_image"] = k1_b1[name == "octave_kernel"]
+        if name.startswith("pgo_solve_kernel"):
+            row["plain_kernels"] = r["plain_kernels"]
+            row["plain_device_ms"] = r["plain_device_ms"]
         if name == "hamming_kernel":
             row["stress_10000x10000"] = {
                 k: k4[k] for k in ("device_ms", "event_ms", "plain_ms",
                                    "host_us", "bound_ms")}
         kernels.append(row)
+        per = ("call" if name.startswith("pgo_solve") else "frame"
+               if name.endswith(("_slam", "_single")) else "pair")
         print(f"[kernels] {name}: {n} launches, device {ms:.4f} ms per "
-              f"{'frame' if name.endswith(('_slam', '_single')) else 'pair'}"
+              f"{per}"
               f" ({per_launch:.4f} per launch), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), host "
               f"{r['host_us']:.1f} us per call/launch, event-bracketed "

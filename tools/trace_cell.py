@@ -56,6 +56,14 @@ def _per_frame(summary):
             if frames else None)
 
 
+def _pgo_launches_per_call(summary):
+    """PGO kernel launches over ``SlamSystem.optimize`` calls (1.0 on the
+    card: one launch a solve; 0.0 on the CPU, which runs the plain loop)."""
+    calls = summary["spans"].get("slam.pgo", {}).get("count", 0)
+    return (summary["counters"].get("pgo_solve.launches", 0) / calls
+            if calls else None)
+
+
 def _exchange_per_pair(summary):
     """Bytes between shards per pair of images through the spatial tier."""
     counters = summary["counters"]
@@ -82,6 +90,7 @@ PROGRAM_METRICS = {
     "slam.host_syncs_per_frame": ("syncs", SLAM, _per_frame),
     "slam.program_captures": ("captures", SLAM,
                               lambda s: s["counters"].get("captures", 0)),
+    "slam.pgo_launches_per_call": ("launches", SLAM, _pgo_launches_per_call),
 }
 
 

@@ -47,6 +47,8 @@ SIGNATURES = {
                        _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "akaze_hamming_top2": [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                            _VP],
+    "akaze_hamming_match": [_I, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I,
+                            _VP, _VP, _VP, _VP, _VP],
     "akaze_extrema_nms": [_VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "akaze_pgo_scratch": [_I, _I, _VP],
     "akaze_pgo_solve": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,

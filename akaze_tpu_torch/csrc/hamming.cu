@@ -51,12 +51,26 @@
 //     max(min(b1, b2), max(s1, s2)); with it the result depends on no scan
 //     or merge order: the best is the first minimum, and an equal minimum
 //     gives second == best;
-//   - counts are read on the device; no host sync, no allocation, one
-//     launch on the caller's stream (cudaLaunchKernelEx for the cluster).
+//   - the whole match in one launch (hamming_kernel<Accept>, C entry
+//     akaze_hamming_match): a matched pair's cost was the host path
+//     around the kernel, two plain extent reductions, ~10 plain
+//     acceptance ops and a CUDA graph's input copies and output clones,
+//     ~280 us of host against 13 us of K4 (PERF.md).  So the kernel finds
+//     its own scan extents, a query tile by its validity bytes (a tile
+//     with no valid query exits at once) and the train extent by a
+//     cluster-wide scan of the validity, an eighth a rank, the maxima
+//     meeting through distributed shared memory; and the writer threads
+//     apply the acceptance rule to the merged (best, second, index) and
+//     write the four Matches fields, gathering x and y of accepted rows;
+//   - hamming_kernel<Top2> (akaze_hamming_top2) writes the raw top-2 for
+//     extents given as device scalars, for the tools and tests;
+//   - no host sync, no allocation, one launch on the caller's stream
+//     (cudaLaunchKernelEx for the cluster).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -153,17 +167,92 @@ struct Smem {
   unsigned char tile[2][TILE];       // +-1 B tiles of two chunks
   unsigned char rows[3][CH * ROWB];  // staged rows of three chunks
   int part[3][QB];   // best dot, second dot, index per query
+  int warp_last[THREADS / 32];       // train extent: per warp, then
+  int last;                          // this rank's slice
 };
 
+// What a launch writes per query row, from its merged (best dot, second
+// dot, index); a dot below -512 is no train row.  ``live``: the row lies
+// in the scanned query range.
+
+// hamming_top2's raw result; the scan extents are device scalars
+struct Top2 {
+  const int* q_count;   // one past the last live query
+  const int* t_count;   // one past the last live train row
+  int* best;
+  int* second;
+  int* idx;
+
+  __device__ void write(int row, bool live, int b, int s, int i) const {
+    best[row] = live && b >= -BITS ? (BITS - b) >> 1 : BIG;
+    second[row] = live && s >= -BITS ? (BITS - s) >> 1 : BIG;
+    idx[row] = live && b >= -BITS ? i : -1;
+  }
+};
+
+// hamming_match's Matches: the rule of match.py's matches_from_top2 (a
+// unique minimum below max_dist for a valid query), integer comparisons
+// and gathers, so equal to the plain chain bit for bit; rejected rows hold
+// -1 in every field
+struct Accept {
+  const unsigned char* q_valid;
+  const float* tx;
+  const float* ty;
+  int max_dist;
+  int* index;
+  float* distance;
+  float* x;
+  float* y;
+
+  __device__ void write(int row, bool live, int b, int s, int i) const {
+    const int best = (BITS - b) >> 1;
+    const int second = s >= -BITS ? (BITS - s) >> 1 : BIG;
+    const bool ok = live && b >= -BITS && best < second && best < max_dist &&
+                    q_valid[row] != 0;
+    index[row] = ok ? i : -1;
+    distance[row] = ok ? static_cast<float>(best) : -1.0f;
+    x[row] = ok ? tx[i] : -1.0f;
+    y[row] = ok ? ty[i] : -1.0f;
+  }
+};
+
+// one past the last nonzero byte of valid[0, n) (0 if none), on every CTA
+// of the cluster: each rank scans an eighth, the ranks' maxima meet
+// through distributed shared memory
+__device__ int cluster_last_live(const unsigned char* __restrict__ valid,
+                                 int n, Smem& sm,
+                                 cg::cluster_group& cluster, int rank,
+                                 int tid) {
+  const int span = (n + RANKS - 1) / RANKS;
+  const int end = min((rank + 1) * span, n);
+  int last = 0;
+#pragma unroll 4
+  for (int j = rank * span + tid; j < end; j += THREADS)
+    if (__ldg(valid + j) != 0) last = j + 1;
+  last = __reduce_max_sync(FULL, last);
+  if ((tid & 31) == 0) sm.warp_last[tid >> 5] = last;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) last = max(last, sm.warp_last[w]);
+    sm.last = last;
+  }
+  cluster.sync();
+  int all = 0;
+#pragma unroll
+  for (int k = 0; k < RANKS; ++k)
+    all = max(all, *cluster.map_shared_rank(&sm.last, k));
+  return all;
+}
+
+template <class Out>
 __global__ void __launch_bounds__(THREADS, 2)
 hamming_kernel(const uint32_t* __restrict__ q, int n1,
-               const int* __restrict__ q_count,
                const uint32_t* __restrict__ t,
-               const unsigned char* __restrict__ tvalid, int n2,
-               const int* __restrict__ t_count, int* __restrict__ best_out,
-               int* __restrict__ second_out, int* __restrict__ idx_out) {
+               const unsigned char* __restrict__ tvalid, int n2, Out out) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_bytes);
+  constexpr bool kTop2 = std::is_same<Out, Top2>::value;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -173,16 +262,27 @@ hamming_kernel(const uint32_t* __restrict__ q, int n1,
   const int g = lane >> 2;        // quad: row of A and of the accumulator
   const int tq = lane & 3;        // lane in the quad: bit planes tq, tq + 4
   const int q0 = static_cast<int>(blockIdx.x) / RANKS * QB;
-  const int nq = max(min(*q_count, n1), 0);
-  const int nt = max(min(*t_count, n2), 0);
-  if (q0 >= nq) {   // the whole cluster lies past the last live query
-    if (rank == 0 && tid < QB && q0 + tid < n1) {
-      best_out[q0 + tid] = BIG;
-      second_out[q0 + tid] = BIG;
-      idx_out[q0 + tid] = -1;
-    }
+
+  // scan extents: top-2 reads them; the match finds them here, a query
+  // tile by its own validity (a row past the last valid query is invalid
+  // itself, so rejected either way), the train range by the cluster
+  int nq = n1, nt = n2;
+  bool idle;
+  if constexpr (kTop2) {
+    nq = max(min(*out.q_count, n1), 0);
+    nt = max(min(*out.t_count, n2), 0);
+    idle = q0 >= nq;
+  } else {
+    idle = !__syncthreads_or(tid < QB && q0 + tid < n1 &&
+                             out.q_valid[q0 + tid] != 0);
+  }
+  if (idle) {   // the same for every rank of the cluster
+    if (rank == 0 && tid < QB && q0 + tid < n1)
+      out.write(q0 + tid, false, NONE, NONE, -1);
     return;
   }
+  if constexpr (!kTop2) nt = cluster_last_live(tvalid, n2, sm, cluster,
+                                               rank, tid);
 
   // this rank's share of the live train range, whole chunks but the last
   const int per = ((nt + RANKS - 1) / RANKS + CH - 1) / CH * CH;
@@ -337,7 +437,7 @@ hamming_kernel(const uint32_t* __restrict__ q, int n1,
   cluster.sync();
 
   // rank k merges rows [k * QB / RANKS, (k + 1) * QB / RANKS) over the
-  // ranks' partials and writes them; a dot below -512 is no train row
+  // ranks' partials and writes them
   if (tid < QB / RANKS) {
     const int r = rank * (QB / RANKS) + tid;
     int b = NONE, s = NONE, i = -1;
@@ -347,34 +447,24 @@ hamming_kernel(const uint32_t* __restrict__ q, int n1,
       merge(b, s, i, part[r], part[QB + r], part[2 * QB + r]);
     }
     const int row = q0 + r;
-    if (row < n1) {
-      const bool live = row < nq;
-      best_out[row] = live && b >= -BITS ? (BITS - b) >> 1 : BIG;
-      second_out[row] = live && s >= -BITS ? (BITS - s) >> 1 : BIG;
-      idx_out[row] = live && b >= -BITS ? i : -1;
-    }
+    if (row < n1) out.write(row, row < nq, b, s, i);
   }
   cluster.sync();   // no rank leaves while another reads its partials
 }
 
-}  // namespace
-
-// q [n1, 16], t [n2, 16]: 32-bit descriptor words (16-byte aligned);
-// tvalid [n2] bytes; q_count, t_count: device int32 scalars, one past the
-// last live query / train row.  Out: best, second, idx [n1] int32.
-extern "C" int akaze_hamming_top2(const void* q, int n1, const int* q_count,
-                                  const void* t, const void* tvalid, int n2,
-                                  const int* t_count, int* best, int* second,
-                                  int* idx, void* stream) {
+// one launch of hamming_kernel<Out> over n1 queries on the current device
+template <class Out>
+int launch(const void* q, int n1, const void* t, const void* tvalid, int n2,
+           const Out& out, void* stream) {
   if (n1 < 0 || n2 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n1 == 0) return static_cast<int>(cudaGetLastError());
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  static bool ready[MAX_DEVICES] = {};
+  static bool ready[MAX_DEVICES] = {};   // one per kernel
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(hamming_kernel,
+    e = cudaFuncSetAttribute(hamming_kernel<Out>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sizeof(Smem)));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -392,11 +482,50 @@ extern "C" int akaze_hamming_top2(const void* q, int n1, const int* q_count,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, hamming_kernel,
-                         static_cast<const uint32_t*>(q), n1, q_count,
+  e = cudaLaunchKernelEx(&cfg, hamming_kernel<Out>,
+                         static_cast<const uint32_t*>(q), n1,
                          static_cast<const uint32_t*>(t),
-                         static_cast<const unsigned char*>(tvalid), n2,
-                         t_count, best, second, idx);
+                         static_cast<const unsigned char*>(tvalid), n2, out);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q [n1, 16], t [n2, 16]: 32-bit descriptor words (16-byte aligned);
+// tvalid [n2] bytes; q_count, t_count: device int32 scalars, one past the
+// last live query / train row.  Out: best, second, idx [n1] int32.
+extern "C" int akaze_hamming_top2(const void* q, int n1, const int* q_count,
+                                  const void* t, const void* tvalid, int n2,
+                                  const int* t_count, int* best, int* second,
+                                  int* idx, void* stream) {
+  return launch(q, n1, t, tvalid, n2,
+                Top2{q_count, t_count, best, second, idx}, stream);
+}
+
+// The whole match in one launch on ``device`` (made current for it): q
+// [n1, 16] and qvalid [n1] bytes, t [n2, 16], tvalid [n2], tx, ty [n2]
+// float; queries accepted below max_dist.  Out: index [n1] int32,
+// distance, x, y [n1] float.
+extern "C" int akaze_hamming_match(int device, const void* q,
+                                   const void* qvalid, int n1, const void* t,
+                                   const void* tvalid, int n2, const void* tx,
+                                   const void* ty, int max_dist, void* index,
+                                   void* distance, void* x, void* y,
+                                   void* stream) {
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (current != device && (e = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(e);
+  const int err = launch(
+      q, n1, t, tvalid, n2,
+      Accept{static_cast<const unsigned char*>(qvalid),
+             static_cast<const float*>(tx), static_cast<const float*>(ty),
+             max_dist, static_cast<int*>(index),
+             static_cast<float*>(distance), static_cast<float*>(x),
+             static_cast<float*>(y)},
+      stream);
+  if (current != device) cudaSetDevice(current);
+  return err;
 }

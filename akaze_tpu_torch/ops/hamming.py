@@ -4,8 +4,13 @@ Replaces ``akaze_tpu/ops/pallas_match.py:hamming_top2``.  The CUDA kernel is
 ``csrc/hamming.cu``; its header says what bounds it on the card and what its
 design does about that.
 
-``hamming_top2`` is the wrapper: on CUDA tensors it launches the kernel (or
-raises), on CPU tensors it runs ``hamming_top2_plain``.  Both return, per
+Two wrappers launch it.  ``hamming_match`` is the whole match of
+``match.match`` in one launch: the scan extents, the top-2 and the
+acceptance rule (``accept_top2``) on the card, returning the four fields of
+``Matches``; CPU tensors run ``hamming_match_plain`` (``hamming_top2_plain``
+over ``last_live``'s extents, then ``accept_top2``).  ``hamming_top2``
+returns the raw top-2 for extents the caller gives; CPU tensors run
+``hamming_top2_plain``.  Each raises for another device.  The top-2 is, per
 query, the smallest distance to a valid train row, the second smallest
 (equal to the smallest when the minimum is not unique) and the lowest index
 reaching the minimum.  Invalid train rows never count; queries at or past
@@ -13,6 +18,8 @@ reaching the minimum.  Invalid train rows never count; queries at or past
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,6 +94,99 @@ def hamming_top2_plain(words1, words2, valid2, count1, count2):
             torch.where(dead, torch.full_like(idx, -1), idx))
 
 
+def accept_top2(best, second, idx, valid1, x2, y2, max_dist: int = 96):
+    """Acceptance (match.py:117-122 of the JAX package): a unique minimum
+    below ``max_dist`` for a valid query.  Returns (index, distance,
+    match_x, match_y), rejected queries -1 in each."""
+    accept = (best < second) & (best < max_dist) & valid1
+    neg = torch.full(idx.shape, -1.0, dtype=torch.float32,
+                     device=idx.device)
+    if x2.shape[0]:
+        safe = idx.clamp(min=0).to(torch.int64)
+        mx, my = x2[safe], y2[safe]
+    else:
+        mx = my = neg
+    return (torch.where(accept, idx, torch.full_like(idx, -1)),
+            torch.where(accept, best.to(torch.float32), neg),
+            torch.where(accept, mx, neg),
+            torch.where(accept, my, neg))
+
+
+def hamming_match_plain(words1, valid1, words2, valid2, x2, y2,
+                        max_dist: int = 96):
+    """The plain twin of ``hamming_match``; same arguments and results."""
+    best, second, idx = hamming_top2_plain(
+        words1, words2, valid2, last_live(valid1), last_live(valid2))
+    return accept_top2(best, second, idx, valid1, x2, y2, max_dist)
+
+
+def _threshold(max_dist) -> int:
+    """``max_dist`` as the kernel's int: a distance d in [0, 512] is below
+    it exactly when it is below its ceiling, clamped to [0, 513]."""
+    if isinstance(max_dist, torch.Tensor):
+        raise TypeError("max_dist must be a number, not a tensor")
+    if math.isnan(max_dist):   # ``best < nan`` rejects every distance
+        return 0
+    bound = 32 * DESCRIPTOR_WORDS + 1
+    return max(math.ceil(min(max(max_dist, -1), bound)), 0)
+
+
+def _launch_match(words1, valid1, words2, valid2, x2, y2, max_dist):
+    n1, n2 = words1.shape[0], words2.shape[0]
+    for name, t in (("words1", words1), ("words2", words2)):
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    # one allocation; the four fields are its rows
+    out = torch.empty((4, n1), dtype=torch.float32, device=words1.device)
+    index, distance, mx, my = out.unbind(0)
+    index = index.view(torch.int32)
+    if n1:
+        err = _build.library().akaze_hamming_match(
+            words1.device.index, words1.data_ptr(), valid1.data_ptr(), n1,
+            words2.data_ptr(), valid2.data_ptr(), n2, x2.data_ptr(),
+            y2.data_ptr(), _threshold(max_dist), index.data_ptr(),
+            distance.data_ptr(), mx.data_ptr(), my.data_ptr(),
+            _build.stream_of(words1))
+        _build.check(err, "hamming_kernel")
+        hamming_match.launches += 1
+    return index, distance, mx, my
+
+
+def hamming_match(words1: torch.Tensor, valid1: torch.Tensor,
+                  words2: torch.Tensor, valid2: torch.Tensor,
+                  x2: torch.Tensor, y2: torch.Tensor, max_dist: int = 96):
+    """1-NN Hamming match with strict-uniqueness acceptance, one launch on
+    the card: no host sync, no other kernel, no copy.
+
+    Args:
+      words1/valid1: [N1, 16] int32 query words and [N1] bool validity.
+      words2/valid2: [N2, 16] int32 train words and [N2] bool validity.
+      x2, y2: [N2] float32 train coordinates.
+      max_dist: a number; distances below it are accepted.
+
+    Holes in either validity are legal; work scales with the last valid
+    row of each set.  Returns (index [N1] int32, distance, match_x,
+    match_y [N1] float32), rejected queries -1 in each.
+    """
+    dev = words1.device
+    n1, n2 = words1.shape[0], words2.shape[0]
+    card = dev.type != "cpu"
+    check = _build.check_tensor
+    check("words1", words1, torch.int32, (n1, DESCRIPTOR_WORDS), dev)
+    check("valid1", valid1, torch.bool, (n1,), dev, card)
+    check("words2", words2, torch.int32, (n2, DESCRIPTOR_WORDS), dev)
+    check("valid2", valid2, torch.bool, (n2,), dev)
+    check("x2", x2, torch.float32, (n2,), dev, card)
+    check("y2", y2, torch.float32, (n2,), dev, card)
+    if not card:
+        return hamming_match_plain(words1, valid1, words2, valid2, x2, y2,
+                                   max_dist)
+    if dev.type == "cuda":
+        return _launch_match(words1, valid1, words2, valid2, x2, y2,
+                             max_dist)
+    raise ValueError(f"no hamming kernel for device {dev}")
+
+
 def _launch(words1, words2, valid2, count1, count2):
     n1, n2 = words1.shape[0], words2.shape[0]
     for name, t in (("words1", words1), ("words2", words2)):
@@ -137,3 +237,4 @@ def hamming_top2(words1: torch.Tensor, words2: torch.Tensor,
 # kernel launches; a replayed program adds the launches its capture
 # recorded (programs.py), so the count covers graphs too
 hamming_top2.launches = 0
+hamming_match.launches = 0

@@ -4,10 +4,12 @@ Port of ``akaze_tpu/pipeline.py``.  One code path serves one image and a
 pair: the scale space of all B images runs with the same K1 launches
 (13 per pair at 960x1280), one launch finds every image's extrema and NMS
 survivors (``ops/detect.py``), selection and refinement run per image, and
-one K2 launch describes every image's keypoints.  ``Akaze.match`` runs K4.  ``Akaze`` runs
-each of its calls as a compiled program (``programs.py``, the JAX
-package's ``_jit_*`` wrappers, the row-sharded one with a mesh): one CUDA
-graph per static signature, shared between instances.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
+one K2 launch describes every image's keypoints.  ``Akaze`` runs each
+detection call as a compiled program (``programs.py``, the JAX package's
+``_jit_*`` wrappers, the row-sharded one with a mesh): one CUDA graph per
+static signature, shared between instances.  ``Akaze.match`` calls
+``match`` directly: on the card that is one K4 launch, and a graph of one
+kernel would add nothing but its input copies and output clones.  Entry points run on the card: ``Akaze()`` and a numpy image default to CUDA (and
 raise without a card), a tensor stays where it lies, and ``device="cpu"``
 runs every kernel's plain version instead.
 
@@ -156,12 +158,8 @@ def detect_and_compute_pair(image_a, image_b, plan: PipelinePlan, *,
 
 # The programs of ``Akaze``, as the JAX package's module-level jit
 # entries: plans are frozen (hashable) dataclasses, so every Akaze instance
-# with the same (shape, config) shares one captured graph.
-@jit(static_argnums=(6,))
-def _jit_match(w1, v1, w2, v2, x2, y2, max_dist):
-    return match(w1, v1, w2, v2, x2, y2, max_dist)
-
-
+# with the same (shape, config) shares one captured graph.  The JAX
+# package's ``_jit_match`` has none: ``Akaze.match`` is one launch.
 @jit(static_argnames=("plan", "fixed", "describe"))
 def _jit_detect_and_compute(image, plan, fixed, describe):
     return detect_and_compute(image, plan, fixed=fixed, describe=describe)
@@ -185,7 +183,7 @@ def _jit_detect_and_compute_pair(image_a, image_b, plan, fixed):
 
 
 class Akaze:
-    """Plans cached per image shape, and a compiled program per call
+    """Plans cached per image shape, and a compiled program per detection
     signature (``programs.py``: one CUDA graph per static signature on the
     card; the CPU runs the functions as they are); every tensor on
     ``device``: the card unless the caller asks for the CPU
@@ -318,10 +316,10 @@ class Akaze:
         akaze.cpp:55-64), accepting distances below ``max_dist`` (MAX_DIST,
         akazed.cu:11).  As in the JAX package, ``config.max_dist`` is not
         read here: a caller that wants it passes it (as the JAX package's
-        ``cli.py:119`` does)."""
+        ``cli.py:119`` does).  On the card: one K4 launch, no program."""
         with tracing.request(), tracing.span("akaze.match"):
-            return _jit_match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
-                              f2.y, max_dist)
+            return match(f1.words, f1.valid, f2.words, f2.valid, f2.x, f2.y,
+                         max_dist)
 
 
 def features_from_numpy(f, device, max_pts: Optional[int] = None

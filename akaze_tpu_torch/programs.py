@@ -278,10 +278,11 @@ def _launch_counters():
     """The kernels' wrappers, whose ``launches`` programs keep counting."""
     from .ops.describe import describe
     from .ops.detect import extrema_nms
-    from .ops.hamming import hamming_top2
+    from .ops.hamming import hamming_match, hamming_top2
     from .ops.pgo import pgo_solve
     from .ops.sublevel import octave, sublevel
-    return (sublevel, octave, extrema_nms, describe, hamming_top2, pgo_solve)
+    return (sublevel, octave, extrema_nms, describe, hamming_top2,
+            hamming_match, pgo_solve)
 
 
 def _leaf_key(x):

@@ -693,12 +693,17 @@ def k4_library_ms(torch, w1, w2, v2, n1, n2):
 
 
 def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
-    """K4 against its plain version on one input: ``Matches`` equal; its
+    """K4 against its plain version on one input: the one-launch match
+    (``hamming_match``, the main path's) equal to the plain chain
+    (``hamming_match_plain``) bit for bit, and the raw top-2 entry
+    (``hamming_top2``) to ``hamming_top2_plain``.  The one-launch match's
     times, host time, bound (the +-1 int8 tensor-core form of the TPU
     kernel: 2 x 486 operations per live pair) and the library yardstick
-    (``k4_library_ms``)."""
-    from akaze_tpu_torch.match import matches_from_top2
-    from akaze_tpu_torch.ops.hamming import (hamming_top2,
+    (``k4_library_ms``) are the row's; the top-2 entry's times go under
+    ``top2``."""
+    from akaze_tpu_torch.ops.hamming import (hamming_match,
+                                             hamming_match_plain,
+                                             hamming_top2,
                                              hamming_top2_plain, last_live)
 
     c1, c2 = last_live(v1), last_live(v2)
@@ -706,34 +711,45 @@ def k4_case(torch, tag, w1, w2, v1, v2, x2, y2, plain_reps=3):
     want = hamming_top2_plain(w1, w2, v2, c1, c2)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    m1 = matches_from_top2(*got, v1, x2, y2)
-    m2 = matches_from_top2(*want, v1, x2, y2)
-    same = all(torch.equal(a, b) for a, b in zip(m1, m2))
+    fn = lambda: hamming_match(w1, v1, w2, v2, x2, y2)  # noqa: E731
+    plain = lambda: hamming_match_plain(w1, v1, w2, v2, x2, y2)  # noqa: E731
+    m1, m2 = fn(), plain()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(m1, m2))
     ties = int(((want[0] == want[1]) & (want[2] >= 0)).sum())
     n1, n2 = int(c1), int(c2)
     print(f"[{tag}] {n1} x {n2} live extents of {w1.shape[0]} x "
           f"{w2.shape[0]}, {int((~v2).sum())} invalid train rows, {ties} "
-          f"tied minima: top-2 max abs err {err}, Matches equal {same}, "
-          f"{int((m1.index >= 0).sum())} accepted")
+          f"tied minima: top-2 max abs err {err}, one-launch match = plain "
+          f"chain bit for bit: {same}, {int((m1[0] >= 0).sum())} accepted")
     check(err == 0 and same, f"{tag}: K4 disagrees with its plain version")
-    fn = lambda: hamming_top2(w1, w2, v2, c1, c2)  # noqa: E731
+    prof = profiled(torch, fn, ("hamming_kernel",))
+    check(len(prof) == 1, f"{tag}: the one-launch match ran {sorted(prof)}")
+    dev_ms, _ = kernel_time(prof, "hamming_kernel")
     event = cuda_ms(torch, fn)
-    plain_ms = cuda_ms(torch, lambda: hamming_top2_plain(w1, w2, v2, c1, c2),
-                       reps=plain_reps)
+    plain_ms = cuda_ms(torch, plain, reps=plain_reps)
     host = host_us(torch, fn)
-    dev_ms, _ = kernel_time(profiled(torch, fn, ("hamming_kernel",)),
-                            "hamming_kernel")
-    nbytes = (n1 + n2) * 64 + n2 + 3 * 4 * w1.shape[0]
+    tfn = lambda: hamming_top2(w1, w2, v2, c1, c2)  # noqa: E731
+    top2 = dict(
+        event_ms=cuda_ms(torch, tfn), host_us=host_us(torch, tfn),
+        device_ms=kernel_time(profiled(torch, tfn, ("hamming_kernel",)),
+                              "hamming_kernel")[0])
+    # words and validity of the live rows read once, the four fields written
+    nbytes = (n1 + n2) * 65 + 4 * 4 * w1.shape[0]
     bms, by = bound(nbytes, 2 * 486 * n1 * n2, INT8_TC_OPS_PER_S)
     library = k4_library_ms(torch, w1, w2, v2, n1, n2)
-    print(f"[{tag}] device {dev_ms:.4f} ms (profiler); event-bracketed "
-          f"(host + device) {event:.3f} ms vs plain {plain_ms:.3f} ms; host "
-          f"{host:.1f} us per call; bound {bms * 1e3:.2f} us ({by}; popcount "
-          f"form {n1 * n2 * 16 / (132 * 16 * 1.98e9) * 1e6:.1f} us); "
-          f"library (_int_mm + topk) {library:.4f} ms")
+    print(f"[{tag}] one-launch match: device {dev_ms:.4f} ms (profiler); "
+          f"event-bracketed (host + device) {event:.3f} ms vs plain chain "
+          f"{plain_ms:.3f} ms; host {host:.1f} us per call; bound "
+          f"{bms * 1e3:.2f} us ({by}; popcount form "
+          f"{n1 * n2 * 16 / (132 * 16 * 1.98e9) * 1e6:.1f} us); library "
+          f"(_int_mm + topk) {library:.4f} ms")
+    print(f"[{tag}] top-2 entry: device {top2['device_ms']:.4f} ms "
+          f"(profiler), event-bracketed {top2['event_ms']:.3f} ms, host "
+          f"{top2['host_us']:.1f} us per call")
     return dict(max_abs_err=err, ties=ties, device_ms=dev_ms, event_ms=event,
                 plain_ms=plain_ms, host_us=host, bound_ms=bms, bound_by=by,
-                library_ms=library)
+                library_ms=library, top2=top2)
 
 
 def k4_stress_inputs(torch, dev):
@@ -767,11 +783,11 @@ def phase_k4(torch, dev):
 def counters():
     from akaze_tpu_torch.ops.describe import describe
     from akaze_tpu_torch.ops.detect import extrema_nms
-    from akaze_tpu_torch.ops.hamming import hamming_top2
+    from akaze_tpu_torch.ops.hamming import hamming_match
     from akaze_tpu_torch.ops.pgo import pgo_solve
     from akaze_tpu_torch.ops.sublevel import octave, sublevel
     return {"tiled": sublevel, "resident": octave, "extrema": extrema_nms,
-            "describe": describe, "hamming": hamming_top2, "pgo": pgo_solve}
+            "describe": describe, "hamming": hamming_match, "pgo": pgo_solve}
 
 
 # K1 launches of the 960x1280 plan: octaves 0-2 tiled (4 + 4 + 4), octave 3
@@ -1734,7 +1750,8 @@ def no_plain_versions():
     saved = [(m, n, getattr(m, n)) for m, n in (
         (k1, "sublevel_plain"), (k1, "octave_plain"),
         (kd, "extrema_nms_plain"), (k2, "describe_plain"),
-        (k4, "hamming_top2_plain"), (pgo, "pgo_solve_plain"))]
+        (k4, "hamming_top2_plain"), (k4, "hamming_match_plain"),
+        (pgo, "pgo_solve_plain"))]
 
     def guard(name):
         def refuse(*a, **kw):
@@ -1874,22 +1891,38 @@ def check_k2_calls(torch, calls, tag):
     return out
 
 
+def k4_top2_args(args):
+    """The top-2 arguments (w1, w2, v2, count1, count2) of a recorded
+    one-launch match's arguments (w1, v1, w2, v2, x2, y2, max_dist)."""
+    from akaze_tpu_torch.ops.hamming import last_live
+    w1, v1, w2, v2 = args[:4]
+    return w1, w2, v2, last_live(v1), last_live(v2)
+
+
+def k4_call_library_ms(torch, call):
+    """``k4_library_ms`` on a recorded one-launch match's inputs."""
+    w1, w2, v2, c1, c2 = k4_top2_args(call[0])
+    return k4_library_ms(torch, w1, w2, v2, int(c1), int(c2))
+
+
 def check_k4_calls(torch, calls, tag):
     """K4 against its plain version on the launches a sharded path made
-    (each shard's queries against its train set): all three outputs
-    exact.  Returns the error, the plain versions' time (each call once,
-    between CUDA events) and the bound of the work."""
+    (each shard's queries against its train set): all four fields of
+    ``Matches`` bit for bit.  Returns the error, the plain versions' time
+    (each call once, between CUDA events) and the bound of the work."""
     from akaze_tpu_torch.ops import hamming as k4mod
     err, plain_ms, nbytes, ops = 0, 0.0, 0, 0
     for a, _ in calls:
-        g = k4mod.hamming_top2(*a)
-        t = cuda_times(torch, lambda: k4mod.hamming_top2_plain(*a), reps=1,
+        g = k4mod.hamming_match(*a)
+        t = cuda_times(torch, lambda: k4mod.hamming_match_plain(*a), reps=1,
                        warmup=0)[0]
-        p = k4mod.hamming_top2_plain(*a)
+        p = k4mod.hamming_match_plain(*a)
         err = max(err, max(float((x - y).abs().max()) for x, y in zip(g, p)))
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(g, p)), f"[{tag}] K4 on a shard differs")
         plain_ms += t
-        n1, n2 = int(a[3]), int(a[4])
-        nbytes += (n1 + n2) * 64 + n2 + 3 * 4 * a[0].shape[0]
+        n1, n2 = (int(c) for c in k4_top2_args(a)[3:])
+        nbytes += (n1 + n2) * 65 + 4 * 4 * a[0].shape[0]
         ops += 2 * 486 * n1 * n2
     check(err == 0, f"[{tag}] K4 on a shard disagrees: {err}")
     bms, by = bound(nbytes, ops, INT8_TC_OPS_PER_S)
@@ -2089,7 +2122,7 @@ def phase_mesh_match(torch, dev, card):
     want = match(w1, v1, w2, v2, x2, y2, 96)
     for fn in counters().values():
         fn.launches = 0
-    with no_plain_versions(), recording(k4mod, "_launch") as calls:
+    with no_plain_versions(), recording(k4mod, "_launch_match") as calls:
         got = gather_shards(sharded_match(w1, v1, w2, v2, x2, y2, mesh, 96),
                             dev)
         torch.cuda.synchronize()
@@ -2139,7 +2172,7 @@ def phase_mesh_dp(torch, dev, card):
     with programs.eager(), no_plain_versions(), \
             recording(scale_space, "octave") as octaves, \
             recording(k2mod, "_launch") as k2calls, \
-            recording(k4mod, "_launch") as k4calls:
+            recording(k4mod, "_launch_match") as k4calls:
         eager = dp_pipeline_step(at, bt, plan, mesh)
         torch.cuda.synchronize()
     for fn in counters().values():
@@ -2155,9 +2188,7 @@ def phase_mesh_dp(torch, dev, card):
     k2c = check_k2_calls(torch, k2calls, "mesh dp")
     k4c = check_k4_calls(torch, k4calls, "mesh dp")
     # the library yardstick on the step's own K4 inputs, summed per step
-    k4c["library_ms"] = sum(
-        k4_library_ms(torch, c[0], c[1], c[2], int(c[3]), int(c[4]))
-        for c, _ in k4calls)
+    k4c["library_ms"] = sum(k4_call_library_ms(torch, c) for c in k4calls)
     check(len(out[0]) == 4 and all(f.x.shape[0] == DP_PAIRS // 4
                                    for f in out[0]), "[mesh dp] shards")
     fa, fb, m = (gather_shards(x, dev) for x in out)
@@ -2706,18 +2737,24 @@ def phase_program_profiler(torch, det, a, b):
 
 
 def phase_program_pair(torch, det, a, b, tag):
-    """Programs 1 and 3 (the pair and the match) of one flavour at
-    960x1280: held against the eager card path, fresh outputs, times
-    eager and captured in turns, device busy against wall."""
-    from akaze_tpu_torch import pipeline
+    """Program 1 (the pair) of one flavour at 960x1280 and the match after
+    it: the pair held against the eager card path, the match one launch
+    and no program; fresh outputs, times eager and captured in turns,
+    device busy against wall."""
+    from akaze_tpu_torch import pipeline, programs
     at = torch.as_tensor(a, device=det.device)
     bt = torch.as_tensor(b, device=det.device)
     (fa, fb), n = hold_program(
         torch, pipeline._jit_detect_and_compute_pair,
         lambda: det.detect_and_compute_pair(at, bt), f"{tag} pair")
     check(n == MAIN_LAUNCHES | {"hamming": 0}, f"[{tag}] launches {n}")
-    hold_program(torch, pipeline._jit_match, lambda: det.match(fa, fb),
-                 f"{tag} match")
+    keys, before = len(programs.stats()), launch_counts()
+    det.match(fa, fb)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in launch_counts().items()}
+    check(len(programs.stats()) == keys and n == dict.fromkeys(n, 0) | {
+        "hamming": 1}, f"[{tag} match] launches {n}, a program key added: "
+        f"{len(programs.stats()) != keys}")
     fresh_outputs(torch, lambda: det.detect_and_compute_pair(at, bt),
                   lambda: det.detect_and_compute_pair(bt, at), tag)
 
@@ -2733,10 +2770,9 @@ def phase_program_pair(torch, det, a, b, tag):
         out[f"{kind}_busy_ms"] = ms
         out[f"{kind}_events"] = events
         out[f"{kind}_idle"] = 1.0 - ms / out[f"{kind}_ms"]
-    out["keys"] = (key_line(pipeline._jit_detect_and_compute_pair, tag)
-                   + key_line(pipeline._jit_match, tag))
-    print(f"[{tag}] captured = eager bit for bit (pair and match, 3 "
-          f"replays each; launches {n}); fresh outputs; no sync; pair "
+    out["keys"] = key_line(pipeline._jit_detect_and_compute_pair, tag)
+    print(f"[{tag}] captured = eager bit for bit (the pair, 3 replays; "
+          f"the match one launch, no program); fresh outputs; no sync; pair "
           f"iteration eager {spread(eager)}, captured {spread(captured)} "
           f"(in turns); device eager {out['eager_busy_ms']:.3f} ms busy in "
           f"{out['eager_events']:.0f} events, idle {out['eager_idle']:.3f}; "
@@ -2767,26 +2803,6 @@ def phase_program_single(torch, det, image, tag):
               f"captured {spread(captured)} (in turns)")
     out["keys"] = key_line(pipeline._jit_detect_and_compute, tag)
     return out
-
-
-def phase_program_match_stress(torch, dev):
-    """Program 3 at 10000 x 10000 (K4's stress inputs)."""
-    from akaze_tpu_torch import pipeline
-    w1, w2, v1, v2, x2, y2 = k4_stress_inputs(torch, dev)
-
-    def call():
-        return pipeline._jit_match(w1, v1, w2, v2, x2, y2, 96)
-
-    m, n = hold_program(torch, pipeline._jit_match, call,
-                        "program match 10000x10000")
-    no_sync(torch, call, "program match 10000x10000")
-    eager, captured = in_turns(torch, call, REPS)
-    print(f"[program match 10000x10000] captured = eager bit for bit "
-          f"({int((m.index >= 0).sum())} accepted, launches {n}); no sync; "
-          f"eager {spread(eager)}, captured {spread(captured)}")
-    return dict(eager_ms=float(np.median(eager)),
-                captured_ms=float(np.median(captured)),
-                keys=key_line(pipeline._jit_match, "program match"))
 
 
 def phase_program_candidates(torch, system):
@@ -3355,7 +3371,8 @@ def launches_by_card():
     table = {}
     saved = [(m, n, getattr(m, n)) for m, n in (
         (k1mod, "_launch_sublevel"), (k1mod, "_launch_octave"),
-        (kdmod, "_launch"), (k2mod, "_launch"), (k4mod, "_launch"))]
+        (kdmod, "_launch"), (k2mod, "_launch"),
+        (k4mod, "_launch_match"))]
 
     def counted(real):
         def launch(*a, **kw):
@@ -3403,8 +3420,7 @@ def per_card_checks(torch, cards, tiled, resident, k2calls, k4calls, fixed,
                        if mine else None)
             if mine:
                 r["k4"]["library_ms"] = sum(
-                    k4_library_ms(torch, a[0], a[1], a[2], int(a[3]),
-                                  int(a[4])) for a, _ in mine)
+                    k4_call_library_ms(torch, c) for c in mine)
         out.append(r)
     return out
 
@@ -3676,7 +3692,7 @@ def phase_cards_match(torch, cards, card):
     for fn in counters().values():
         fn.launches = 0
     with no_plain_versions(), launches_by_card() as by_card, \
-            recording(k4mod, "_launch") as calls:
+            recording(k4mod, "_launch_match") as calls:
         got = gather_shards(call(), cards[0])
         sync_all(torch, cards)
     expect_by_card(cards, by_card, {"tiled": 0, "resident": 0,
@@ -3732,7 +3748,7 @@ def phase_cards_dp(torch, cards, card):
             launches_by_card() as by_card, \
             recording(scale_space, "octave") as octaves, \
             recording(k2mod, "_launch") as k2calls, \
-            recording(k4mod, "_launch") as k4calls:
+            recording(k4mod, "_launch_match") as k4calls:
         eager = dp_pipeline_step(at, bt, plan, four)
         sync_all(torch, cards)
     total = launch_counts()
@@ -4455,7 +4471,7 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
             launches_by_card() as dp_cards, \
             recording(scale_space, "octave") as octaves, \
             recording(k2mod, "_launch") as dk2, \
-            recording(k4mod, "_launch") as dk4:
+            recording(k4mod, "_launch_match") as dk4:
         calls["dp"]()
         sync_all(torch, cards)
     pairs = DP_PAIRS // CARDS
@@ -4465,7 +4481,7 @@ def procs_worker(torch, rank: int, port: int, outdir: str) -> int:
                                         False, tag)
     tag = f"procs match rank {rank}"
     with no_plain_versions(), launches_by_card() as m_cards, \
-            recording(k4mod, "_launch") as mk4:
+            recording(k4mod, "_launch_match") as mk4:
         calls["match"]()
         sync_all(torch, cards)
     expect_by_card(cards, m_cards, {"tiled": 0, "resident": 0,
@@ -4843,7 +4859,6 @@ def main() -> int:
     print(f"[time] card: {card}; pair iteration {pair_ms:.3f} ms")
     prog = {"float": phase_program_pair(torch, det, a, b, "program float")}
     phase_program_single(torch, det, a, "program single 960x1280")
-    phase_program_match_stress(torch, dev)
 
     # the float path on f32 planes (bf16_sampling=False)
     f32 = Akaze(AkazeConfig(max_pts=MAX_PTS, bf16_sampling=False),

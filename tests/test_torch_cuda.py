@@ -581,7 +581,7 @@ def test_pipeline_on_card_matches_cpu(cuda):
     cpu = Akaze(cfg, device="cpu")
     ca, cb = cpu.detect_and_compute_pair(a, b)
     cm = cpu.match(ca, cb)
-    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_match)
     before = [c.launches for c in counters]
     gpu = Akaze(cfg, device=cuda)
     ga, gb = gpu.detect_and_compute_pair(a, b)
@@ -613,7 +613,7 @@ def test_fixed_pipeline_on_card_matches_cpu(cuda, exact):
     cpu = Akaze(cfg, fixed=True, device="cpu")
     ca, cb = cpu.detect_and_compute_pair(a, b)
     cm = cpu.match(ca, cb)
-    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_match)
     before = [c.launches for c in counters]
     gpu = Akaze(cfg, fixed=True, device=cuda)
     ga, gb = gpu.detect_and_compute_pair(a, b)
@@ -864,7 +864,7 @@ def test_describe_false_launches_no_descriptor(cuda):
     a, _ = pair()
     det = Akaze(AkazeConfig(max_pts=512, noctaves=2), device=cuda)
     want = det.detect_and_compute(a)
-    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_match)
     before = [c.launches for c in counters]
     got = det.detect_and_compute(a, describe=False)
     torch.cuda.synchronize()
@@ -1199,7 +1199,7 @@ def test_debug_planes_on_card_match_cpu(cuda, fixed):
     from akaze_tpu_torch.debug import debug_planes
     a, _ = raw_pair() if fixed else pair()
     plan = build_plan(*a.shape, AkazeConfig(max_pts=2000))
-    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_match)
     for c in counters:
         c.launches = 0
     got = debug_planes(a, plan, fixed=fixed, device=cuda)
@@ -1274,12 +1274,12 @@ def _card_mesh(cuda, n):
 def _launch_counts():
     return {"tiled": k1.sublevel.launches, "resident": k1.octave.launches,
             "describe": k2.describe.launches,
-            "hamming": k4.hamming_top2.launches}
+            "hamming": k4.hamming_match.launches}
 
 
 def _reset_counts():
     k1.sublevel.launches = k1.octave.launches = 0
-    k2.describe.launches = k4.hamming_top2.launches = 0
+    k2.describe.launches = k4.hamming_match.launches = 0
 
 
 def _same_features(got, want):
@@ -1333,7 +1333,7 @@ def test_sharded_match_on_card_equals_unsharded(cuda):
     _reset_counts()
     got = gather_shards(sharded_match(w1, v1, w2, v2, x2, y2,
                                       _card_mesh(cuda, 4), 200), cuda)
-    assert k4.hamming_top2.launches == 4
+    assert k4.hamming_match.launches == 4
     want = match(w1, v1, w2, v2, x2, y2, 200)
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
@@ -1550,14 +1550,23 @@ def _replayed(program, fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("flavour", sorted(PROGRAM_FLAVOURS))
 def test_pair_program_equals_eager(cuda, flavour):
-    from akaze_tpu_torch import pipeline
+    from akaze_tpu_torch import pipeline, programs
+    from akaze_tpu_torch.match import matches_from_top2
     kw, fixed = PROGRAM_FLAVOURS[flavour]
     a, b = raw_pair() if fixed else pair()
     det = Akaze(AkazeConfig(max_pts=2000, **kw), fixed=fixed, device=cuda)
     at, bt = (torch.as_tensor(x, device=cuda) for x in (a, b))
     (fa, fb), _ = _replayed(pipeline._jit_detect_and_compute_pair,
                             lambda: det.detect_and_compute_pair(at, bt))
-    _replayed(pipeline._jit_match, lambda: det.match(fa, fb))
+    # the match is no program: one launch, equal to the plain chain
+    keys = len(programs.stats())
+    m, n = _counted(lambda: det.match(fa, fb))
+    assert len(programs.stats()) == keys
+    assert n == {"tiled": 0, "resident": 0, "describe": 0, "hamming": 1}
+    want = matches_from_top2(*k4.hamming_top2_plain(
+        fa.words, fb.words, fb.valid, k4.last_live(fa.valid),
+        k4.last_live(fb.valid)), fa.valid, fb.x, fb.y)
+    _assert_trees_equal(m, want)
     assert int(fa.count) > 100
 
 
@@ -1578,7 +1587,7 @@ def test_program_outputs_are_fresh(cuda):
     inputs, and a replay makes no host sync."""
     det = Akaze(AkazeConfig(max_pts=2000), device=cuda)
     a, b = (torch.as_tensor(x, device=cuda) for x in pair())
-    det.match(*det.detect_and_compute_pair(a, b))   # captures both
+    det.match(*det.detect_and_compute_pair(a, b))   # captures the pair
     f1 = det.detect_and_compute_pair(a, b)
     keep = [x.clone() for x in f1[0]]
     torch.cuda.synchronize()

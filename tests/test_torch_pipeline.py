@@ -36,13 +36,13 @@ from akaze_tpu_torch.descriptor import _compare_index_tensors, words_to_numpy
 from akaze_tpu_torch.detect import const_table
 from akaze_tpu_torch.pipeline import detect_batch
 from akaze_tpu_torch.ops.describe import describe
-from akaze_tpu_torch.ops.hamming import hamming_top2
+from akaze_tpu_torch.ops.hamming import hamming_match, hamming_top2
 from akaze_tpu_torch.ops.sublevel import octave, sublevel
 
 torch.set_num_threads(1)
 
 SHIFT = (7, 13)
-COUNTERS = (sublevel, octave, describe, hamming_top2)
+COUNTERS = (sublevel, octave, describe, hamming_top2, hamming_match)
 
 
 def _images(test_image):
@@ -124,7 +124,7 @@ def test_known_shift_recovered(runs):
 
 
 def test_cpu_path_launches_no_kernel(runs):
-    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
 def test_single_image_equals_pair(runs, test_image):
@@ -275,7 +275,7 @@ def test_entry_points_default_to_the_card(monkeypatch, test_image):
     det.match(fa, fb)
     got = detect_and_compute(torch.from_numpy(a), plan)
     assert got.x.device.type == "cpu"
-    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
 
@@ -317,7 +317,7 @@ def fixed_runs(test_image):
         tf = detect_and_compute_pair(a, b, plan, fixed=True, device="cpu")
         tm = match(tf[0].words, tf[0].valid, tf[1].words, tf[1].valid,
                    tf[1].x, tf[1].y, plan.config.max_dist)
-        assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
+        assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
         out[flavour] = (jf, jm, tf, tm, plan)
     return out
 

@@ -16,6 +16,7 @@ bounds ``tests/test_torch_slam.py`` states for these solvers).
 
 import ast
 import contextlib
+import inspect
 from pathlib import Path
 
 import jax
@@ -57,7 +58,8 @@ SITES = [
      tpipe._jit_detect_and_compute_pair),
     ("akaze_tpu/pipeline.py", "_jit_detect_and_compute",
      tpipe._jit_detect_and_compute),
-    ("akaze_tpu/pipeline.py", "_jit_match", tpipe._jit_match),
+    # no program: on the card the port's match is one launch
+    ("akaze_tpu/pipeline.py", "_jit_match", tpipe.match),
     ("akaze_tpu/slam/system.py", "_batched_match_counts",
      tsys._batched_match_counts),
     ("akaze_tpu/slam/posegraph.py", "optimize_pose_graph",
@@ -104,7 +106,12 @@ def jax_static_arguments(path: str, name: str):
                          ids=[s[1] for s in SITES])
 def test_programs_declare_jax_static_arguments(path, name, program):
     names, nums = jax_static_arguments(path, name)
-    assert isinstance(program, programs.Program)
+    if not isinstance(program, programs.Program):
+        # a direct site: JAX's static arguments are the plain numbers the
+        # port's function takes, at the same places
+        params = list(inspect.signature(program).parameters)
+        assert set(names) | {params[i] for i in nums} == {"max_dist"}
+        return
     assert program.static_argnames == names
     assert program.static_argnums == nums
     params = list(program.signature.parameters)
@@ -265,12 +272,31 @@ def test_keys_follow_static_values_shapes_and_none():
     assert len(set(others + [base])) == len(others) + 1
     with pytest.raises(TypeError):
         key(R, t, g, iters=5, fixed_mask="all")
-    m = tpipe._jit_match
-    w, v = torch.zeros(8, 16, dtype=torch.int32), torch.ones(8, dtype=bool)
-    x = torch.zeros(8)
-    assert m.key(w, v, w, v, x, x, 96)[0] != m.key(w, v, w, v, x, x, 60)[0]
-    assert m.key(w, v, w, v, x, x, 96)[0] == m.key(w, v, w, v, x, x,
-                                                   max_dist=96)[0]
+    # JAX's _jit_match keys on max_dist; the port's Akaze.match has no
+    # program and no key: it is match() as it is, max_dist a plain number
+    rng = np.random.default_rng(9)
+    w1 = _words(rng, 8)
+    flips = rng.integers(0, 32, (8, 16)).astype(np.uint32)
+    w2 = w1 ^ (np.uint32(1) << flips)           # 16 bits from its query
+    n = torch.zeros(8)
+
+    def feats(words):
+        return tpipe.Features(
+            x=torch.arange(8.0), y=n + 2, size=n, response=n, angle=n,
+            layer=torch.zeros(8, dtype=torch.int32),
+            words=t_(words.view(np.int32)),
+            valid=torch.ones(8, dtype=torch.bool),
+            count=torch.tensor(8, dtype=torch.int32),
+            overflow=torch.tensor(False))
+
+    f1, f2 = feats(w1), feats(w2)
+    for max_dist, accepted in ((96, 8), (17, 8), (16, 0)):
+        got = Akaze.match(f1, f2, max_dist)
+        want = tpipe.match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
+                           f2.y, max_dist)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int((got.index >= 0).sum()) == accepted
 
 
 def test_cpu_akaze_captures_nothing():
@@ -285,7 +311,8 @@ def test_cpu_akaze_captures_nothing():
         img += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
     img = np.clip(img, 0, 1).astype(np.float32)
     a, b = img[:96, :128].copy(), img[5:101, 7:135].copy()
-    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2)
+    counters = (k1.sublevel, k1.octave, k2.describe, k4.hamming_top2,
+                k4.hamming_match)
     before = [fn.launches for fn in counters]
     det = Akaze(AkazeConfig(max_pts=256, noctaves=2, dthreshold=5e-5),
                 device="cpu")
@@ -303,7 +330,8 @@ def test_cpu_akaze_captures_nothing():
     for g_, w_ in zip(f1, w1):
         assert torch.equal(g_, w_)
     for _, _, p in SITES:
-        assert p.captures == 0 and p.replays == 0 and not p.entries
+        if isinstance(p, programs.Program):
+            assert p.captures == 0 and p.replays == 0 and not p.entries
     assert [fn.launches for fn in counters] == before
     assert int(fa.count) > 0 and int((m.index >= 0).sum()) > 0
 

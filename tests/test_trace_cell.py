@@ -41,6 +41,11 @@ def test_a_traced_cell_reports_the_program_metrics(name):
         # one world, its whole route in the traced stretch
         traffic.update(worlds=1, trace_steps=13, warm_steps=0)
         seconds = 1.0
+    elif traffic["driver"] == "exhaustive":
+        # the set's four detections take ~1.5 s of the 2-s window on an
+        # idle host: a loaded one can end the window before any pair is
+        # matched, and a check with no pair reads infinite
+        seconds = 3 * seconds
     try:
         out = tool.run(spec, cell, 2 ** 33 + 5, seconds,
                        start=time.perf_counter(), devices=devices,
@@ -69,6 +74,12 @@ def test_a_traced_cell_reports_the_program_metrics(name):
             "value": 0.0, "unit": "launches"}
     else:
         assert {"akaze.upload", "akaze.detect", "akaze.match"} <= set(spans)
+    if name == "sfm.exhaustive.960x1280":
+        # the matcher's kernel runs on the card only: the CPU matches with
+        # the plain twin, no launch in any call
+        assert out["metrics"]["match.launches_per_call"] == {
+            "value": 0.0, "unit": "launches"}
+        assert out["metrics"]["match.host_us"]["value"] > 0
     if cell["chips"] > 1:
         # the pair's images through the spatial tier, four CPU shards
         counters = out["summary"]["counters"]
@@ -77,3 +88,24 @@ def test_a_traced_cell_reports_the_program_metrics(name):
         assert out["metrics"]["spatial.exchange_bytes_per_pair"][
             "value"] > 0
         assert "spatial.fallbacks" not in counters
+
+
+def test_match_metrics_read_the_tracer_summary():
+    """``match.host_us`` is the mean ``akaze.match`` span in us, and
+    ``match.launches_per_call`` the one-launch matcher's launches over
+    those spans; neither reads anything without a match."""
+    tool = load_tool()
+    host = tool.PROGRAM_METRICS["match.host_us"][2]
+    per_call = tool.PROGRAM_METRICS["match.launches_per_call"][2]
+    summary = {"spans": {"akaze.match": {"count": 4, "total_ns": 180_000,
+                                         "self_ns": 170_000}},
+               "counters": {"hamming_match.launches": 4,
+                            "hamming_top2.launches": 0}}
+    assert host(summary) == 45.0
+    assert per_call(summary) == 1.0
+    empty = {"spans": {}, "counters": {"hamming_match.launches": 3}}
+    assert host(empty) is None and per_call(empty) is None
+    cells = {cells for _, cells, _ in (
+        tool.PROGRAM_METRICS["match.host_us"],
+        tool.PROGRAM_METRICS["match.launches_per_call"])}
+    assert cells == {("sfm.exhaustive.960x1280",)}

@@ -56,12 +56,15 @@ def _per_frame(summary):
             if frames else None)
 
 
-def _pgo_launches_per_call(summary):
-    """PGO kernel launches over ``SlamSystem.optimize`` calls (1.0 on the
-    card: one launch a solve; 0.0 on the CPU, which runs the plain loop)."""
-    calls = summary["spans"].get("slam.pgo", {}).get("count", 0)
-    return (summary["counters"].get("pgo_solve.launches", 0) / calls
-            if calls else None)
+def _launches_per_call(counter, span):
+    """A reader of ``counter``'s launches over ``span``'s count: 1.0 on the
+    card for a one-launch solve or match, 0.0 on the CPU, which runs the
+    plain twin; None without a call."""
+    def read(summary):
+        calls = summary["spans"].get(span, {}).get("count", 0)
+        return (summary["counters"].get(counter, 0) / calls
+                if calls else None)
+    return read
 
 
 def _exchange_per_pair(summary):
@@ -90,7 +93,12 @@ PROGRAM_METRICS = {
     "slam.host_syncs_per_frame": ("syncs", SLAM, _per_frame),
     "slam.program_captures": ("captures", SLAM,
                               lambda s: s["counters"].get("captures", 0)),
-    "slam.pgo_launches_per_call": ("launches", SLAM, _pgo_launches_per_call),
+    "slam.pgo_launches_per_call": ("launches", SLAM, _launches_per_call(
+        "pgo_solve.launches", "slam.pgo")),
+    "match.host_us": ("us", PAIRS[1:],
+                      lambda s: _mean(s, "akaze.match", 1e3)),
+    "match.launches_per_call": ("launches", PAIRS[1:], _launches_per_call(
+        "hamming_match.launches", "akaze.match")),
 }
 
 
